@@ -1,0 +1,108 @@
+"""Build and bind the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface, named by a hash of the
+sources and flags (as ``grafimo_tpu/native/__init__.py:29-51`` names its
+C++ library) and cached under ``grafimo_tpu_torch/_build/``.  The build
+runs at first use, never at import, so the CPU tests import every module
+on a host without ``nvcc``.  The library is bound with ``ctypes``:
+pointers and the stream cross as ``c_void_p``.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCES = [os.path.join(_HERE, "csrc", "hist.cu")]
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_LOCK = threading.Lock()
+_LIB = None
+# what the last build printed (ptxas register / shared-memory report)
+# and how long it took; None when the library came from the cache
+BUILD_LOG = None
+BUILD_SECONDS = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for root in ([home] if home else []) + ["/usr/local/cuda"]:
+        cand = os.path.join(root, "bin", "nvcc")
+        if os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME): the port's CUDA kernels are "
+        "compiled at first use and need the CUDA toolkit"
+    )
+
+
+def library_path() -> str:
+    h = hashlib.sha256()
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"grafimo_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels unless the hashed library exists; returns its
+    path."""
+    global BUILD_LOG, BUILD_SECONDS
+    so_path = library_path()
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so_path}.tmp.{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so_path)
+    BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = proc.stdout + proc.stderr
+    return so_path
+
+
+def load() -> ctypes.CDLL:
+    """The bound kernel library (built on first call)."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build())
+            c = ctypes
+            lib.grafimo_exact_hist.argtypes = [
+                c.c_void_p, c.c_longlong, c.c_int, c.c_int, c.c_void_p,
+                c.c_void_p,
+            ]
+            lib.grafimo_exact_hist.restype = c.c_int
+            lib.grafimo_cuda_error_string.argtypes = [c.c_int]
+            lib.grafimo_cuda_error_string.restype = c.c_char_p
+            _LIB = lib
+    return _LIB
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise when a kernel entry returned a CUDA error."""
+    if code:
+        msg = lib.grafimo_cuda_error_string(code).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,72 @@
+"""Exact integer score histogram: the CUDA kernel and its plain version.
+
+Counterpart of ``grafimo_tpu/ops/pallas_hist.py::hist_pallas`` and
+``grafimo_tpu/ops/score_runs.py::_exact_hist`` (``:311-377``).  Contract:
+``scores (..., M) int32`` -> ``(hist_size, M) int32`` with
+``out[b, c] = #{scores[..., c] == b}``; values below 0 (invalid windows)
+and at or above ``hist_size`` are dropped.
+
+:func:`exact_hist` launches ``csrc/hist.cu`` for a CUDA tensor and raises
+if it cannot; it takes :func:`exact_hist_reference` only for a CPU
+tensor.  ``COUNTS`` records which of the two ran, so a run can show that
+its main path went through the kernel.
+"""
+
+import torch
+
+from grafimo_tpu_torch import kernels
+
+# launches of the CUDA kernel / calls of the plain version since the
+# last reset_counts()
+COUNTS = {"kernel": 0, "plain": 0}
+
+
+def reset_counts() -> None:
+    COUNTS["kernel"] = 0
+    COUNTS["plain"] = 0
+
+
+def exact_hist_reference(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
+    """Plain PyTorch version: one ``bincount`` over ``value * M + column``
+    of the in-range entries, on the tensor's own device."""
+    COUNTS["plain"] += 1
+    m = scores.shape[-1]
+    flat = scores.reshape(-1, m)
+    keep = (flat >= 0) & (flat < hist_size)
+    cols = torch.arange(m, device=scores.device).expand_as(flat)
+    idx = flat.to(torch.int64)[keep] * m + cols[keep]
+    counts = torch.bincount(idx, minlength=hist_size * m)
+    return counts.view(hist_size, m).to(torch.int32)
+
+
+def exact_hist(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
+    """Exact histogram of ``scores`` -- the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if scores.device.type == "cpu":
+        return exact_hist_reference(scores, hist_size)
+    if scores.device.type != "cuda":
+        raise ValueError(f"exact_hist: unsupported device {scores.device}")
+    if scores.dtype != torch.int32:
+        raise TypeError(f"exact_hist: scores must be int32, got {scores.dtype}")
+    if not scores.is_contiguous():
+        raise ValueError("exact_hist: scores must be contiguous")
+    if scores.dim() < 1 or not 1 <= scores.shape[-1] <= 65535:
+        raise ValueError(
+            f"exact_hist: need 1..65535 columns, got shape {tuple(scores.shape)}"
+        )
+    if not 1 <= hist_size < 2**31 // 4:
+        raise ValueError(f"exact_hist: hist_size {hist_size} out of range")
+    m = scores.shape[-1]
+    n = scores.numel() // m
+    out = torch.zeros((hist_size, m), dtype=torch.int32, device=scores.device)
+    if n == 0:
+        return out
+    lib = kernels.load()
+    with torch.cuda.device(scores.device):
+        stream = torch.cuda.current_stream(scores.device).cuda_stream
+        code = lib.grafimo_exact_hist(
+            scores.data_ptr(), n, m, hist_size, out.data_ptr(), stream
+        )
+    kernels.check(lib, code, "exact_hist launch")
+    COUNTS["kernel"] += 1
+    return out

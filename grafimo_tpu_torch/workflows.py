@@ -1,0 +1,402 @@
+"""Workflow orchestration on torch: ``buildvg`` and ``findmotif``.
+
+Counterpart of ``grafimo_tpu/workflows.py``.  ``buildvg`` is host-only
+and copied (``:70-128``) because the reference module imports jax; so
+are the graph-loading helpers (``:131-302``).  ``findmotif`` runs the
+default run engine on one explicit torch device (``:366-417, 453-517,
+552-578``).  Options whose device half is not ported yet raise with the
+``ROADMAP.md`` item that ports them.
+"""
+
+import os
+import time
+from typing import Dict, List, Tuple
+
+import torch
+
+from grafimo_tpu.config import BuildVG, Findmotif
+from grafimo_tpu.errors import GrafimoError, GraphError
+from grafimo_tpu.graph.sitegraph import SiteGraph, build_graph
+from grafimo_tpu.io.bed import read_bed_regions
+from grafimo_tpu.io.fasta import fasta_chrom_names, read_fasta
+from grafimo_tpu.io.vcf import read_vcf_records
+from grafimo_tpu.models.motif import MotifSet
+from grafimo_tpu.models.parse import load_motifs
+from grafimo_tpu.report.writer import print_results, write_results
+from grafimo_tpu.utils.constants import DEFAULT_OUTDIR
+from grafimo_tpu_torch.device import check_deps
+
+GVT_SUFFIX = ".gvt.npz"
+
+
+class NotPortedError(GrafimoError):
+    """An option whose counterpart the port does not have yet."""
+
+
+def print_welcome() -> None:
+    """Startup banner (reference ``workflows.print_welcome``)."""
+    from grafimo_tpu_torch import __version__
+
+    print("\n" + "*" * 54)
+    print("  GRAFIMO-TPU-torch — variation-graph motif scanning")
+    print(f"  version {__version__} (PyTorch / CUDA)")
+    print("*" * 54 + "\n")
+
+
+def graph_filename(outdir: str, prefix: str, chrom: str) -> str:
+    """(``grafimo_tpu/workflows.py:70``)"""
+    return os.path.join(outdir, f"{prefix}{chrom}{GVT_SUFFIX}")
+
+
+def buildvg(workflow: BuildVG) -> List[str]:
+    """Build per-chromosome site graphs; returns the written graph paths
+    (``grafimo_tpu/workflows.py:74-128``).
+
+    ``--export`` raises: the reference's buildvg calls an
+    ``_export_graph`` that its module does not define
+    (``grafimo_tpu/workflows.py:113,120``; ROADMAP C4)."""
+    workflow.validate()
+    if workflow.export:
+        raise NotPortedError(
+            "--export is not available: the reference buildvg has no "
+            "_export_graph implementation to port (ROADMAP C4)"
+        )
+    print_welcome()
+    outdir = workflow.outdir
+    if outdir == DEFAULT_OUTDIR:
+        outdir = os.getcwd()
+    os.makedirs(outdir, exist_ok=True)
+    chroms = workflow.chroms
+    if not chroms:
+        chroms = fasta_chrom_names(workflow.reference_genome)
+    if workflow.verbose:
+        print(f"Building variation graphs for chromosomes: {chroms}")
+    seqs = read_fasta(workflow.reference_genome, chroms)
+    written = []
+    for chrom in chroms:
+        if chrom not in seqs:
+            raise GraphError(
+                f"chromosome {chrom} not found in "
+                f"{workflow.reference_genome}"
+            )
+        start = time.time()
+        name = chrom
+        if workflow.namemap:
+            name = workflow.namemap.get(chrom, chrom)
+        path = graph_filename(outdir, workflow.chroms_prefix, name)
+        if os.path.isfile(path) and not workflow.reindex:
+            # reference skips recomputing indexes unless --reindex
+            # (constructVG.py:213-236)
+            print(f"graph for {chrom} exists ({path}); skipping "
+                  f"(use --reindex to rebuild)")
+            written.append(path)
+            continue
+        records, n_hap = read_vcf_records(workflow.vcf, chrom)
+        graph = build_graph(chrom, seqs[chrom], records, n_hap=n_hap)
+        graph.save(path)
+        written.append(path)
+        if workflow.verbose:
+            print(
+                f"graph for {chrom}: {graph.n_nodes} nodes, "
+                f"{len(graph.sites)} sites, "
+                f"{graph.haplo.n_hap if graph.haplo else 0} haplotypes "
+                f"({time.time() - start:.2f}s) -> {path}"
+            )
+    return written
+
+
+def _resolve_graph_path(workflow: Findmotif, chrom: str) -> str:
+    """Map a BED chromosome name to its graph file
+    (``grafimo_tpu/workflows.py:131-148``)."""
+    c = chrom[3:] if chrom.startswith("chr") else chrom
+    if workflow.namemap:
+        c = workflow.namemap.get(c, c)
+        name = c
+    else:
+        name = f"{workflow.chroms_prefix}{c}"
+    gvt = os.path.join(workflow.graph_genome_dir, f"{name}{GVT_SUFFIX}")
+    if os.path.isfile(gvt):
+        return gvt
+    for ext in (".gfa", ".vg", ".xg"):
+        cand = os.path.join(workflow.graph_genome_dir, f"{name}{ext}")
+        if os.path.isfile(cand):
+            return cand
+    return gvt
+
+
+def _display_chrom(workflow: Findmotif, chrom: str) -> str:
+    """(``grafimo_tpu/workflows.py:151-157``)"""
+    c = chrom[3:] if chrom.startswith("chr") else chrom
+    if workflow.namemap:
+        return workflow.namemap.get(c, c)
+    return c
+
+
+def _xg_conversion_error(path: str, cause: str = "") -> GraphError:
+    """(``grafimo_tpu/workflows.py:160-177``)"""
+    stem = os.path.splitext(path)[0]
+    why = f" ({cause})" if cause else ""
+    return GraphError(
+        f"{path} could not be parsed natively{why}. Export it once "
+        f"with\n\n"
+        f"    vg convert -p {path} > {stem}.vg\n"
+        f"    (or: vg view -g {path} > {stem}.gfa)\n\n"
+        f"(a {os.path.basename(stem)}.gbwt sidecar next to the export is "
+        f"imported natively for the haplotype panel) and re-run against "
+        f"the exported graph."
+    )
+
+
+def load_graph_file(path: str) -> SiteGraph:
+    """Load a ``.gvt.npz``, ``.vg``, ``.xg`` or ``.gfa`` graph, with a
+    ``.gbwt`` sidecar where present (``grafimo_tpu/workflows.py:180-210``)."""
+    if path.endswith(".xg"):
+        from grafimo_tpu.graph.xg import xg_to_sitegraph
+
+        gbwt = path[:-3] + ".gbwt"
+        try:
+            return xg_to_sitegraph(
+                path, gbwt=gbwt if os.path.isfile(gbwt) else None
+            )
+        except GraphError as exc:
+            raise _xg_conversion_error(path, cause=str(exc)) from exc
+    for ext, loader_name in ((".gfa", "gfa"), (".vg", "vgproto")):
+        if path.endswith(ext):
+            if loader_name == "gfa":
+                from grafimo_tpu.graph.gfa import (
+                    gfa_to_sitegraph as loader,
+                )
+            else:
+                from grafimo_tpu.graph.vgproto import (
+                    vg_to_sitegraph as loader,
+                )
+            gbwt = path[: -len(ext)] + ".gbwt"
+            return loader(
+                path, gbwt=gbwt if os.path.isfile(gbwt) else None
+            )
+    return SiteGraph.load(path)
+
+
+def _warn(msg: str) -> None:
+    import sys
+
+    sys.stderr.write(f"\033[33mWARNING: {msg}\033[0m\n")
+
+
+def _ensure_haplotypes(
+    workflow: Findmotif, graph: SiteGraph, path: str
+) -> SiteGraph:
+    """Haplotype-panel bootstrap for graphs that import without a
+    GBWT/walk index (``grafimo_tpu/workflows.py:219-264``)."""
+    if graph.haplo is not None:
+        return graph
+    if not workflow.vcf:
+        _warn(
+            f"{path}: no haplotype index (no .gbwt sidecar / GFA walks) "
+            f"— every window reports haplotype frequency 0 and is "
+            f"dropped from the report unless --recomb. Pass --vcf "
+            f"PHASED.vcf.gz to build the panel from the graph's VCF, or "
+            f"rebuild with buildvg."
+        )
+        return graph
+    records, n_hap = read_vcf_records(workflow.vcf, graph.chrom)
+    if not records:
+        raise GraphError(
+            f"--vcf {workflow.vcf}: no usable records for chromosome "
+            f"{graph.chrom!r} — cannot build a haplotype panel for "
+            f"{path}"
+        )
+    rebuilt = build_graph(graph.chrom, graph.seq, records, n_hap=n_hap)
+    if sorted(rebuilt.node_seqs[1:]) != sorted(graph.node_seqs[1:]):
+        _warn(
+            f"{path}: graph rebuilt from --vcf differs from the "
+            f"imported topology — is {workflow.vcf} the VCF this graph "
+            f"was built from? Scanning the rebuilt graph."
+        )
+    if workflow.verbose:
+        print(
+            f"haplotype panel for {graph.chrom} built from "
+            f"{workflow.vcf} ({rebuilt.haplo.n_hap if rebuilt.haplo else 0}"
+            f" haplotypes)"
+        )
+    return rebuilt
+
+
+def _load_graphs(
+    workflow: Findmotif, chroms_in_bed: List[str]
+) -> Dict[str, Tuple[str, SiteGraph]]:
+    """``{bed_chrom: (display_name, graph)}`` for every requested
+    chromosome (``grafimo_tpu/workflows.py:267-302``)."""
+    selected = workflow.chroms
+    graphs: Dict[str, Tuple[str, SiteGraph]] = {}
+    if workflow.has_graphgenome():
+        g = load_graph_file(workflow.graph_genome)
+        g = _ensure_haplotypes(workflow, g, workflow.graph_genome)
+        for chrom in chroms_in_bed:
+            c = chrom[3:] if chrom.startswith("chr") else chrom
+            if selected and c not in selected:
+                continue
+            if c == g.chrom or chrom == g.chrom:
+                graphs[chrom] = (_display_chrom(workflow, chrom), g)
+        if not graphs:
+            raise GraphError(
+                f"graph chromosome {g.chrom!r} does not match any BED "
+                f"chromosome {chroms_in_bed}"
+            )
+        return graphs
+    for chrom in chroms_in_bed:
+        c = chrom[3:] if chrom.startswith("chr") else chrom
+        if selected and c not in selected:
+            continue
+        path = _resolve_graph_path(workflow, chrom)
+        if not os.path.isfile(path):
+            raise GraphError(
+                f"unable to locate {path} — are your graphs named with "
+                f'"chr"? Consider --chroms-prefix-find or '
+                f"--chroms-namemap-find"
+            )
+        g = _ensure_haplotypes(workflow, load_graph_file(path), path)
+        graphs[chrom] = (_display_chrom(workflow, chrom), g)
+    return graphs
+
+
+def _scan_cache_path(workflow: Findmotif, regions, width: int) -> str:
+    """Checkpoint file for one (graph inputs, region set, width), keyed by
+    graph paths + mtimes (``grafimo_tpu/workflows.py:305-336``; single
+    process, so no process-index key)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    h.update(b"scan-cache-v1")
+    sources = []
+    if workflow.has_graphgenome():
+        sources.append(workflow.graph_genome)
+    else:
+        for chrom in sorted(regions):
+            sources.append(_resolve_graph_path(workflow, chrom))
+    for p in sources:
+        try:
+            h.update(f"{p}:{os.path.getmtime(p)}".encode())
+        except OSError:
+            h.update(p.encode())
+    for chrom in sorted(regions):
+        h.update(chrom.encode())
+        for s, e in regions[chrom]:
+            h.update(f"{s}-{e};".encode())
+    h.update(str(width).encode())
+    os.makedirs(workflow.cache_dir, exist_ok=True)
+    return os.path.join(
+        workflow.cache_dir, f"scan_{h.hexdigest()[:20]}.npz"
+    )
+
+
+def _reject_unported(workflow: Findmotif) -> None:
+    """Raise for options whose device half is not ported yet."""
+    if workflow.engine != "runs":
+        raise NotPortedError(
+            f"--engine {workflow.engine} is not ported to torch yet "
+            "(ROADMAP A11); use the default --engine runs"
+        )
+    if workflow.profile_dir:
+        raise NotPortedError(
+            "--profile is not ported to torch yet (ROADMAP A15)"
+        )
+    if workflow.coordinator or workflow.num_processes or (
+        workflow.process_id >= 0
+    ):
+        raise NotPortedError(
+            "--coordinator / --num-processes / --process-id: multi-host "
+            "scans are not ported to torch yet (ROADMAP A13)"
+        )
+
+
+def findmotif(workflow: Findmotif, device: torch.device) -> List[str]:
+    """Scan the variation graph(s) for motif occurrences on ``device``;
+    returns the written report directories (empty for ``--text-only``)."""
+    workflow.validate()
+    _reject_unported(workflow)
+    print_welcome()
+    check_deps(device)
+    from grafimo_tpu_torch.runscan import (
+        build_region_runs,
+        compute_results_runs,
+    )
+
+    motif_set = MotifSet()
+    for motif_file in workflow.motifs:
+        motif_set.add(
+            load_motifs(
+                motif_file, workflow.bgfile, workflow.pseudo,
+                workflow.no_reverse,
+            )
+        )
+    print(f"Read {len(motif_set)} motif(s); widths: {sorted(motif_set.widths)}")
+    regions, region_num = read_bed_regions(workflow.bedfile)
+    print(f"Found {region_num} regions in {workflow.bedfile}")
+    graphs = _load_graphs(workflow, list(regions.keys()))
+    # one extraction + scan pass per distinct width, shared by all motifs
+    # of that width (reference grafimo.py:176)
+    results: Dict[str, object] = {}
+    for width in sorted(motif_set.widths):
+        t0 = time.time()
+        region_runs_list = []
+        for chrom, (display, graph) in graphs.items():
+            region_runs_list.extend(
+                build_region_runs(
+                    graph, display, regions.get(chrom, []), width
+                )
+            )
+        cache_path = None
+        if workflow.cache_dir:
+            cache_path = _scan_cache_path(workflow, regions, width)
+        if workflow.verbose:
+            materialised = [
+                r for r in region_runs_list if r.payloads is not None
+            ]
+            if materialised:
+                n_runs = sum(len(r.payloads) for r in materialised)
+                print(
+                    f"width {width}: {n_runs} runs over "
+                    f"{len(region_runs_list)} regions in "
+                    f"{time.time() - t0:.2f}s"
+                )
+            else:
+                print(
+                    f"width {width}: {len(region_runs_list)} regions "
+                    f"prepared (native batch pipeline) in "
+                    f"{time.time() - t0:.2f}s"
+                )
+        dfs = compute_results_runs(
+            motif_set.by_width(width),
+            region_runs_list,
+            device,
+            threshold=workflow.threshold,
+            no_qvalue=workflow.no_qvalue,
+            qval_t=workflow.qval_t,
+            no_reverse=workflow.no_reverse,
+            recomb=workflow.recomb,
+            verbose=workflow.verbose,
+            cores=workflow.cores,
+            cache_path=cache_path,
+        )
+        results.update(dfs)
+    outdirs = []
+    chrom_graphs = {d: g for (d, g) in graphs.values()}
+    for motif in motif_set:
+        df = results[motif.motif_id]
+        if workflow.text_only:
+            print_results(df)
+        else:
+            outdirs.append(
+                write_results(
+                    df,
+                    motif.motif_id,
+                    len(motif_set),
+                    workflow.outdir,
+                    no_qvalue=workflow.no_qvalue,
+                    top_graphs=workflow.top_graphs,
+                    graphs=chrom_graphs,
+                    verbose=workflow.verbose,
+                )
+            )
+    return outdirs

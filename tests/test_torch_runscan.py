@@ -1,0 +1,332 @@
+"""The port's run-scan engine (``grafimo_tpu_torch/runscan.py``) on the
+CPU against the reference's: the copied host half array for array,
+``scan_batches`` histograms and hits, and ``compute_results_runs``
+DataFrames.  Tolerance 0: integers, and float64 values computed by the
+same numpy code from the same integers."""
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+import grafimo_tpu.ops.qvalue as ref_qvalue
+import grafimo_tpu.runscan as ref_rs
+import grafimo_tpu_torch.ops.qvalue as port_qvalue
+import grafimo_tpu_torch.runscan as port_rs
+from grafimo_tpu.graph.sitegraph import build_graph
+from grafimo_tpu.io.fasta import read_fasta
+from grafimo_tpu.io.vcf import VcfRecord, iter_vcf_records
+from grafimo_tpu.models.background import load_bg
+from grafimo_tpu.models.motif import Motif
+from grafimo_tpu.models.parse import _prepare_counts_motif, load_motifs
+from grafimo_tpu.models.process import process_motif
+from grafimo_tpu.models.pvalue import PvalueLookup
+from grafimo_tpu.utils.constants import UNIF
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+BATCH_FIELDS = ("packed", "nbits", "vbits", "gstart", "patches", "splice")
+
+
+@pytest.fixture(autouse=True)
+def _single_device(monkeypatch):
+    # the reference shards over conftest's 8 CPU devices otherwise;
+    # sharding never changes its values, only its run time
+    monkeypatch.setenv("GRAFIMO_TPU_SINGLE_DEVICE", "1")
+
+
+def _toy_graph(input_dir):
+    seqs = read_fasta(str(input_dir / "test.fa"))
+    records = list(iter_vcf_records(str(input_dir / "test.vcf.gz"), "x"))
+    return build_graph("x", seqs["x"], records)
+
+
+def _random_graph(seed, length=900):
+    """SNPs, deletions and insertions over a random sequence with a few
+    N bases, three diploid samples."""
+    rng = np.random.default_rng(seed)
+    seq = list(rng.choice(list("ACGT"), length))
+    for p in rng.choice(np.arange(5, length - 5), 6, replace=False):
+        seq[p] = "N"
+    seq = "".join(seq)
+    records, pos = [], 12
+    while pos < length - 30:
+        gt = [int(x) for x in rng.integers(0, 2, 6)]
+        kind = rng.random()
+        span = seq[pos - 1 : pos + 6]
+        if "N" not in span:
+            if kind < 0.15:  # deletion of 1..4 bases
+                ln = int(rng.integers(1, 5))
+                records.append(VcfRecord("r", pos, seq[pos - 1 : pos + ln],
+                                         [seq[pos - 1]], gt))
+            elif kind < 0.3:  # insertion of 1..4 bases
+                ins = "".join(rng.choice(list("ACGT"), int(rng.integers(1, 5))))
+                records.append(
+                    VcfRecord("r", pos, seq[pos - 1], [seq[pos - 1] + ins], gt)
+                )
+            else:
+                alt = rng.choice([c for c in "ACGT" if c != seq[pos - 1]])
+                records.append(VcfRecord("r", pos, seq[pos - 1], [alt], gt))
+        pos += int(rng.integers(7, 16))
+    return build_graph("r", seq, records)
+
+
+def _motif(seed, k):
+    counts = np.random.default_rng(seed).integers(1, 50, (4, k)).astype(
+        np.float64
+    )
+    return process_motif(
+        _prepare_counts_motif(
+            Motif(motif_id="P", motif_name="P", counts=counts, width=k),
+            load_bg(UNIF, False),
+            0.1,
+        )
+    )
+
+
+def _scan_inputs(motifs, threshold):
+    mats, mins = [], []
+    for mt in motifs:
+        mats += [mt.score_matrix, port_rs.reverse_complement_pwm(mt.score_matrix)]
+        mins += [mt.min_score] * 2
+    lookups = [PvalueLookup(mt.pval_table) for mt in motifs]
+    cuts = np.array(
+        [lk.score_cutoff(threshold) for lk in lookups for _ in (0, 1)],
+        np.int32,
+    )
+    k = motifs[0].width
+    return (port_rs.pwms_to_conv_kernel(mats), np.array(mins, np.int32),
+            cuts, k, 1000 * k + 1)
+
+
+def _assert_batches_equal(got, want):
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x.R == y.R and x.graph is y.graph
+        for f in BATCH_FIELDS:
+            a, b = getattr(x, f), getattr(y, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                assert a.dtype == b.dtype, f
+                np.testing.assert_array_equal(a, b, err_msg=f)
+        assert [(c.source, c.chunk_off) for c in x.chunks] == [
+            (c.source, c.chunk_off) for c in y.chunks
+        ]
+
+
+def _both_batches(graph, display, regions, k, resident):
+    got = port_rs.batch_runs(
+        port_rs.build_region_runs(graph, display, regions, k), k,
+        resident=resident,
+    )
+    want = ref_rs.batch_runs(
+        ref_rs.build_region_runs(graph, display, regions, k), k,
+        resident=resident,
+    )
+    return got, want
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("which", ["toy", "random"])
+def test_batch_runs_matches_reference(input_dir, which, resident):
+    if which == "toy":
+        graph, display, regions, k = _toy_graph(input_dir), "x", [(0, 50)], 19
+    else:
+        graph = _random_graph(3)
+        display, regions, k = "r", [(0, 400), (350, graph.length)], 11
+    got, want = _both_batches(graph, display, regions, k, resident)
+    kinds = {(b.gstart is None, b.patches is None, b.splice is None)
+             for b in got}
+    assert len(kinds) >= (3 if which == "random" and resident else 1)
+    _assert_batches_equal(got, want)
+    assert port_rs.batch_wire_stats(got, k) == ref_rs.batch_wire_stats(
+        want, k
+    )
+    assert port_rs._format_wire_stats(
+        port_rs.batch_wire_stats(got, k)
+    ) == ref_rs._format_wire_stats(ref_rs.batch_wire_stats(want, k))
+
+
+def test_resident_genome_matches_reference():
+    # separate graph objects: both functions cache on the graph
+    got = port_rs._resident_genome(_random_graph(4))
+    want = ref_rs._resident_genome(_random_graph(4))
+    assert want[1] is not None  # the graph has N bases
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_qvalues_from_histogram_matches_reference(input_dir):
+    ctcf = load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1, False)[0]
+    lookup = PvalueLookup(ctcf.pval_table)
+    rng = np.random.default_rng(6)
+    hist = np.zeros(19001, np.int64)
+    hist[rng.integers(0, 19001, 300)] = rng.integers(1, 1000, 300)
+    got = port_qvalue.qvalues_from_histogram(hist, lookup.pvalues)
+    assert got == ref_qvalue.qvalues_from_histogram(hist, lookup.pvalues)
+    p = rng.random(50)
+    np.testing.assert_array_equal(
+        port_qvalue.fdr_bh(p), ref_qvalue.fdr_bh(p)
+    )
+
+
+def _mix_batches(mod, graph, rng, k):
+    """One batch of each of the five kinds, with N bases (in the graph),
+    invalid offsets, empty and full patch slots and negative splice
+    shifts; built with ``mod``'s own DeviceBatch/RunChunk classes."""
+    L = graph.length
+    key = f"{graph.chrom}:0-{L}"
+
+    def chunks(n, c_idx):
+        return [mod.RunChunk((key, (c_idx, i)), 0) for i in range(n)]
+
+    def vbits(b, r):
+        v = rng.random((b, r - k + 1)) < 0.9
+        v[0] = True
+        return mod.pack_bits(v)
+
+    out = []
+    b, r = 6, 64
+    codes = rng.integers(0, 4, (b, r)).astype(np.uint8)
+    out.append(mod.DeviceBatch(
+        R=r, packed=mod.pack_run_seqs(codes),
+        nbits=mod.pack_bits(rng.random((b, r)) < 0.03), vbits=vbits(b, r),
+        chunks=chunks(b, 7),
+    ))
+    r = 128
+    stride = r - k + 1
+    out.append(mod.DeviceBatch(  # strided: uniform row starts
+        R=r, packed=None, nbits=None, vbits=vbits(5, r), chunks=chunks(5, -1),
+        gstart=(40 + stride * np.arange(5)).astype(np.int32), graph=graph,
+    ))
+    gstart = rng.integers(20, L - r - 20, 7).astype(np.int32)
+    out.append(mod.DeviceBatch(  # gathered: arbitrary row starts
+        R=r, packed=None, nbits=None, vbits=vbits(7, r), chunks=chunks(7, -1),
+        gstart=gstart, graph=graph,
+    ))
+    patches = np.full((7, 16), -1, np.int16)
+    for i in range(1, 7):
+        n = 16 if i == 1 else int(rng.integers(1, 16))
+        patches[i, :n] = rng.choice(r, n, replace=False) * 4 + rng.integers(
+            0, 4, n
+        )
+    out.append(mod.DeviceBatch(
+        R=r, packed=None, nbits=None, vbits=vbits(7, r), chunks=chunks(7, 3),
+        gstart=gstart, graph=graph, patches=patches,
+    ))
+    splice = np.full((7, 4), 0x7FFF, np.int16)
+    splice[1:, 0] = rng.integers(10, r - 10, 6)
+    splice[1:, 1] = rng.integers(-9, 10, 6)
+    splice[1, 1] = -9
+    out.append(mod.DeviceBatch(
+        R=r, packed=None, nbits=None, vbits=vbits(7, r), chunks=chunks(7, 4),
+        gstart=gstart, graph=graph, patches=patches, splice=splice,
+    ))
+    return out
+
+
+def _mix_graph():
+    rng = np.random.default_rng(8)
+    seq = list(rng.choice(list("ACGT"), 1500))
+    for p in rng.choice(1500, 12, replace=False):
+        seq[p] = "N"
+    return build_graph("m", "".join(seq), [])
+
+
+@pytest.mark.parametrize("case", ["toy", "random", "random_tiny_cap", "mix"])
+def test_scan_batches_matches_reference(input_dir, monkeypatch, case):
+    if case == "toy":
+        graph, k = _toy_graph(input_dir), 19
+        motifs = load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1,
+                             False)
+        got_b, want_b = _both_batches(graph, "x", [(0, 50)], k, True)
+    elif case == "mix":
+        graph, k = _mix_graph(), 11
+        motifs = [_motif(5, k)]
+        got_b = _mix_batches(port_rs, graph, np.random.default_rng(9), k)
+        want_b = _mix_batches(ref_rs, graph, np.random.default_rng(9), k)
+    else:
+        graph, k = _random_graph(5), 11
+        motifs = [_motif(5, k), _motif(6, k)]
+        got_b, want_b = _both_batches(graph, "r", [(0, graph.length)], k,
+                                      True)
+    if case == "random_tiny_cap":
+        # slicing must not change results (the reference pins this at 64)
+        monkeypatch.setattr(ref_rs, "MAX_BASES_PER_DISPATCH", 64)
+        monkeypatch.setattr(port_rs, "MAX_BASES_PER_DISPATCH", 64)
+    args = _scan_inputs(motifs, 0.05)
+    got = port_rs.scan_batches(got_b, *args, CPU)
+    want = ref_rs.scan_batches(want_b, *args)
+    assert got.hists.dtype == np.int64
+    np.testing.assert_array_equal(got.hists, want.hists)
+    np.testing.assert_array_equal(got.n_windows_per_col,
+                                  want.n_windows_per_col)
+    assert got.hists.sum() > 0 and len(got.hits) > 0
+    assert sorted(got.hits) == sorted(want.hits)
+
+
+def _toy_cases():
+    # the cases of tests/test_runscan.py:47, :60, :75 and :121
+    runs = [
+        dict(threshold=1.0, recomb=True),
+        dict(threshold=1.0, recomb=True, no_reverse=True),
+        dict(threshold=1.0, recomb=True, no_qvalue=True),
+        dict(threshold=0.05, recomb=True),
+        dict(threshold=0.95, recomb=True, qval_t=True),
+        dict(threshold=0.96, recomb=False, qval_t=True),
+    ]
+    return [("toy", kw) for kw in runs] + [
+        ("multi_motif", dict(threshold=1.0, recomb=True)),
+        ("n_bases", dict(threshold=1.0, recomb=True)),
+        ("qvalue_threshold", dict(threshold=0.95, qval_t=True, recomb=True)),
+    ]
+
+
+@pytest.mark.parametrize("case,kwargs", _toy_cases())
+def test_compute_results_runs_matches_reference(input_dir, case, kwargs):
+    ctcf = load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1, False)[0]
+    motifs = [ctcf]
+    if case == "multi_motif":
+        m2 = load_motifs(str(input_dir / "MA0139.1.jaspar"), UNIF, 0.1,
+                         False)[0]
+        m2.motif_id = "MA0139.1-jaspar"
+        motifs.append(m2)
+    if case == "n_bases":
+        seq = "ACGT" * 20 + "N" + "ACGT" * 20
+        graph, display, regions = build_graph("n", seq, []), "n", [(0, len(seq))]
+    else:
+        graph, display, regions = _toy_graph(input_dir), "x", [(0, 50)]
+    got = port_rs.compute_results_runs(
+        motifs, port_rs.build_region_runs(graph, display, regions, 19), CPU,
+        **kwargs,
+    )
+    want = ref_rs.compute_results_runs(
+        motifs, ref_rs.build_region_runs(graph, display, regions, 19),
+        **kwargs,
+    )
+    assert list(got) == list(want)
+    for mid in want:
+        pd.testing.assert_frame_equal(got[mid], want[mid], check_exact=True)
+
+
+def test_score_fault_raises_mismatch(input_dir, monkeypatch):
+    """A host/device score disagreement raises after one scan: the
+    reference's rescan-once retry is not ported."""
+    ctcf = load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1, False)[0]
+    real_score, real_scan = port_rs._score_windows_host, port_rs.scan_batches
+    scans = []
+
+    def counted_scan(*args, **kwargs):
+        scans.append(1)
+        return real_scan(*args, **kwargs)
+
+    monkeypatch.setattr(port_rs, "scan_batches", counted_scan)
+    monkeypatch.setattr(port_rs, "_score_windows_host",
+                        lambda *args: real_score(*args) + 1)
+    rr = port_rs.build_region_runs(_toy_graph(input_dir), "x", [(0, 50)], 19)
+    with pytest.raises(port_rs._DeviceHostMismatch, match="absent"):
+        port_rs.compute_results_runs([ctcf], rr, CPU, threshold=1.0,
+                                     recomb=True)
+    assert scans == [1]
