@@ -20,7 +20,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    whole-chromosome CTCF ``findmotif`` through the port's CLI on the
    card, which must launch the histogram kernel and never its plain
    version; then a 1 Mbp region around the first dense pocket on the
-   card and on the CPU, whose reports must be byte-identical.
+   card and on the CPU, whose reports must be byte-identical;
+6. the packed-window scoring kernel against its plain version on the
+   card, bit for bit, at the window engine's chunk shape and around it
+   (fwd + RC columns, k = 8 and 30, M = 16, N and PAD rows, a ragged B,
+   LUT entries at 1020), with CUDA event timings;
+7. the exact-histogram kernel against its plain version over the range
+   of the TPU's histogram variants (native ``(n, M)`` layout, n not a
+   tile multiple, k in {8, 19, 32}, M in {1, 3, 16});
+8. the per-window engine (``findmotif --engine windows``) on phase 5's
+   graph over a seeded set of 1,000 peak-sized regions: on the card,
+   where it must launch both kernels and neither plain version, then on
+   the CPU, whose report must be byte-identical, then the run engine on
+   the card, whose report must hold the same rows.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -300,7 +312,7 @@ def _findmotif(argv):
     text = buf.getvalue()
     for line in text.splitlines():
         if line.startswith(("Scanned", "run scan", "wire", "width",
-                            "compute backend")):
+                            "compute backend", "window scan")):
             log(f"    {line}")
     if rc != 0:
         raise RuntimeError(f"findmotif rc={rc}: {text[-2000:]}")
@@ -380,7 +392,192 @@ def phase_main_path(torch, wd):
     if reports["cuda"][0] != reports["cpu"][0]:
         raise RuntimeError("1 Mbp pocket region: cuda and cpu TSVs differ")
     log("1 Mbp pocket region: cuda TSV byte-identical to cpu TSV")
-    return launches["kernel"]
+    return launches["kernel"], gdir, synth
+
+
+def _random_packed(torch, b, k, m, gen, flag_frac=0.0, high=1001):
+    """Device inputs of the packed-window scoring: random 2-bit rows,
+    flags with ``flag_frac`` N rows and as many PAD rows, an integer LUT
+    with entries below ``high`` and the per-column minimum scores."""
+    from grafimo_tpu_torch.ops.pack import packed_width
+
+    dev = torch.device("cuda")
+    packed = torch.randint(0, 256, (b, packed_width(k)), device=dev,
+                           generator=gen, dtype=torch.uint8)
+    u = torch.rand(b, device=dev, generator=gen)
+    flags = torch.zeros(b, dtype=torch.uint8, device=dev)
+    flags[u < flag_frac] = 1
+    flags[(u >= flag_frac) & (u < 2 * flag_frac)] = 2
+    lut = torch.randint(0, high, (k, 4, m), device=dev, generator=gen,
+                        dtype=torch.int32)
+    mins = lut.min(dim=1).values.sum(dim=0).to(torch.int32)
+    return packed, flags, lut, mins
+
+
+def phase_scan_packed_vs_plain(torch):
+    from grafimo_tpu_torch.ops.scan_packed import (
+        score_packed,
+        score_packed_reference,
+    )
+    from grafimo_tpu_torch.scan import CHUNK
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cases = [  # (label, B, k, M, N/PAD row fraction each, LUT bound)
+        ("window path B=2^18 k=19 M=1", CHUNK, 19, 1, 0.0, 1001),
+        ("fwd + RC k=19 M=2", CHUNK, 19, 2, 0.0, 1001),
+        ("k=30 M=16", CHUNK, 30, 16, 0.0, 1001),
+        ("k=8 M=1", CHUNK, 8, 1, 0.0, 1001),
+        ("B=2^18-7, 1% N + 1% PAD rows", CHUNK - 7, 19, 2, 0.01, 1001),
+        ("LUT entries at 1020", CHUNK, 19, 2, 0.0, 1021),
+    ]
+    out = []
+    for label, b, k, m, frac, high in cases:
+        packed, flags, lut, mins = _random_packed(torch, b, k, m, gen, frac,
+                                                  high)
+        if high > 1001:
+            lut[:, :, 0] = 1020  # column 0 scores 1020*k on every clean row
+        got = score_packed(packed, flags, lut, mins)
+        want = score_packed_reference(packed, flags, lut, mins)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if err or not torch.equal(got, want):
+            raise RuntimeError(f"score_packed != plain at {label}: "
+                               f"max err {err}")
+        if frac and not ((got == -1).any() and (flags == 1).any()):
+            raise RuntimeError(f"{label}: no N or PAD rows drawn")
+        ms = _time_ms(torch, lambda: score_packed(packed, flags, lut, mins))
+        plain_ms = _time_ms(
+            torch, lambda: score_packed_reference(packed, flags, lut, mins))
+        log(f"score_packed vs plain [{label}] packed {tuple(packed.shape)} "
+            f"M={m}: bit-identical, max_abs_err 0, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (median of 10, CUDA events)")
+        out.append({"label": label, "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": err})
+        del packed, flags, lut, mins, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hist_variants(torch):
+    """Kernels 2-4 of the TPU's histogram share kernel 1's contract; the
+    one CUDA kernel is held to it over their parameter range, on the
+    window path's native (n, M) score layout."""
+    from grafimo_tpu_torch.ops.hist import exact_hist, exact_hist_reference
+    from grafimo_tpu_torch.ops.scan_packed import score_packed_reference
+    from grafimo_tpu_torch.ops.score_windows import hist_size_for_width
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n = (1 << 18) + 123
+    out = []
+    for k in (8, 19, 32):
+        for m in (1, 3, 16):
+            hist_size = hist_size_for_width(k)
+            packed, flags, lut, mins = _random_packed(torch, n, k, m, gen,
+                                                      0.01)
+            s = score_packed_reference(packed, flags, lut, mins)
+            # a few scores past the last bin, which the contract drops
+            over = torch.rand(s.shape, device=s.device, generator=gen) < 0.005
+            s = s.masked_fill_(over, hist_size + 7).contiguous()
+            got = exact_hist(s, hist_size)
+            want = exact_hist_reference(s, hist_size)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            if err or not torch.equal(got, want):
+                raise RuntimeError(f"exact_hist != plain at n={n} k={k} "
+                                   f"M={m}: max err {err}")
+            ms = _time_ms(torch, lambda: exact_hist(s, hist_size))
+            plain_ms = _time_ms(torch,
+                                lambda: exact_hist_reference(s, hist_size))
+            log(f"exact_hist vs plain [(n, M) = ({n}, {m}), k={k}, "
+                f"{hist_size} bins]: bit-identical, kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms (median of 10, CUDA events)")
+            out.append({"label": f"k={k} M={m}", "ms": ms,
+                        "plain_ms": plain_ms, "max_abs_err": err})
+            del packed, flags, lut, mins, s, over, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+PEAKS = 1000  # a ChIP-seq peak set on one chromosome
+PEAK_BP = 500
+
+
+def _sorted_report(tsv: bytes):
+    """A TSV report in the order ``tests/test_multi_motif.py:113-120``
+    sorts both engines' reports before comparing them."""
+    import pandas as pd
+
+    return (
+        pd.read_csv(io.BytesIO(tsv), sep="\t", index_col=0)
+        .sort_values(["sequence_name", "p-value", "start", "stop", "strand",
+                      "matched_sequence"])
+        .reset_index(drop=True)
+    )
+
+
+def phase_window_engine(torch, wd, gdir, synth):
+    import numpy as np
+    import pandas as pd
+
+    from grafimo_tpu_torch.ops import hist, scan_packed
+
+    rng = np.random.default_rng(SEED + 4)
+    span = synth["length"] // PEAKS
+    starts = np.arange(PEAKS) * span + rng.integers(0, span - PEAK_BP, PEAKS)
+    bed = os.path.join(wd, "peaks.bed")
+    with open(bed, "w") as f:
+        for s in starts.tolist():
+            f.write(f"chr21\t{s}\t{s + PEAK_BP}\n")
+    in_pockets = sum(
+        any(lo <= s < hi for lo, hi in synth["pockets"]) for s in starts
+    )
+    log(f"peak set: {PEAKS} regions of {PEAK_BP} bp, {in_pockets} in dense "
+        f"pockets")
+
+    def run(engine, dev):
+        outdir = os.path.join(wd, f"out_peaks_{engine}_{dev}")
+        text, dt = _findmotif([
+            "findmotif", "-d", gdir, "-b", bed, "-m", MOTIF, "-t", "1e-4",
+            "-o", outdir, "--verbose", "--device", dev, "--engine", engine,
+        ])
+        return text, dt, _report(outdir)
+
+    torch.cuda.reset_peak_memory_stats()
+    hist.reset_counts()
+    scan_packed.reset_counts()
+    text, wall, (tsv_cuda, n_hits) = run("windows", "cuda")
+    launches = {"scan_packed": dict(scan_packed.COUNTS),
+                "exact_hist": dict(hist.COUNTS)}
+    for name, c in launches.items():
+        if c["kernel"] <= 0 or c["plain"] != 0:
+            raise RuntimeError(f"window engine did not run on the {name} "
+                               f"kernel: {c}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    m_ext = re.search(r"extracted (\d+) candidate windows in ([\d.]+)s", text)
+    m_scan = re.search(r"(\d+) window rows scored in ([\d.]+)s", text)
+    if m_ext is None or m_scan is None:
+        raise RuntimeError("findmotif --engine windows printed no "
+                           "extraction or scan summary")
+    rows, scan_s = int(m_scan.group(1)), float(m_scan.group(2))
+    log(f"window engine on cuda: {rows} window rows ({rows // 2} "
+        f"windows/strand), extraction {float(m_ext.group(2)):.2f}s, "
+        f"scan {scan_s:.3f}s, wall {wall:.2f}s, {n_hits} hits (p < 1e-4), "
+        f"{rows / 2 / scan_s:.0f} windows/strand/s over the scan, scan "
+        f"share of wall {scan_s / wall:.4f}, peak device memory "
+        f"{peak_gib:.3f} GiB; launches {launches}")
+
+    _, wall_cpu, (tsv_cpu, _) = run("windows", "cpu")
+    if tsv_cpu != tsv_cuda:
+        raise RuntimeError("window engine: cuda and cpu TSVs differ")
+    log(f"window engine on cpu: wall {wall_cpu:.2f}s; cuda TSV "
+        f"byte-identical to cpu TSV")
+
+    _, wall_runs, (tsv_runs, n_runs_hits) = run("runs", "cuda")
+    pd.testing.assert_frame_equal(_sorted_report(tsv_runs),
+                                  _sorted_report(tsv_cuda), check_exact=True)
+    log(f"run engine on cuda: {n_runs_hits} hits, wall {wall_runs:.2f}s; "
+        f"report equal to the window engine's when sorted")
+    return launches["scan_packed"]["kernel"]
 
 
 def main() -> int:
@@ -398,8 +595,11 @@ def main() -> int:
     cases = phase_kernel_vs_plain(torch)
     phase_cuda_vs_cpu(torch)
     with tempfile.TemporaryDirectory(prefix="grafimo_smoke_") as wd:
-        launches = phase_main_path(torch, wd)
-    main_case = cases[0]
+        launches, gdir, synth = phase_main_path(torch, wd)
+        scan_cases = phase_scan_packed_vs_plain(torch)
+        cases += phase_hist_variants(torch)
+        scan_launches = phase_window_engine(torch, wd, gdir, synth)
+    main_case, scan_case = cases[0], scan_cases[0]
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [{
         "name": "exact_hist",
@@ -410,6 +610,15 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
+    }, {
+        "name": "scan_packed",
+        "route": "cuda",
+        "source": "grafimo_tpu_torch/csrc/scan_packed.cu",
+        "replaces": "grafimo_tpu/ops/pallas_scan.py:74",
+        "launches": scan_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in scan_cases),
+        "ms": scan_case["ms"],
+        "plain_ms": scan_case["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, named by a hash of the
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``,
+one ``nvcc -c`` per source, all started together, and linked into one
+shared library with a plain C interface, named by a hash of the
 sources and flags (as ``grafimo_tpu/native/__init__.py:29-51`` names its
 C++ library) and cached under ``grafimo_tpu_torch/_build/``.  The build
 runs at first use, never at import, so the CPU tests import every module
@@ -18,11 +19,13 @@ import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(_HERE, "csrc", "hist.cu")]
+SOURCES = [
+    os.path.join(_HERE, "csrc", name) for name in ("hist.cu", "scan_packed.cu")
+]
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _LOCK = threading.Lock()
@@ -66,18 +69,38 @@ def build() -> str:
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        for obj, src in zip(objs, SOURCES)
+    ]
+    # the target flags only keep nvcc from warning about its default arch
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so_path)
+    try:
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for cmd in compiles
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, proc, out in zip(compiles, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({' '.join(link)}):\n{proc.stdout}"
+            )
+        os.replace(tmp, so_path)
+    finally:
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.remove(path)
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
+    BUILD_LOG = "".join(logs) + proc.stdout
     return so_path
 
 
@@ -95,6 +118,11 @@ def load() -> ctypes.CDLL:
                 c.c_void_p,
             ]
             lib.grafimo_exact_hist.restype = c.c_int
+            lib.grafimo_scan_packed.argtypes = [
+                c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_longlong,
+                c.c_int, c.c_int, c.c_void_p, c.c_void_p,
+            ]
+            lib.grafimo_scan_packed.restype = c.c_int
             lib.grafimo_cuda_error_string.argtypes = [c.c_int]
             lib.grafimo_cuda_error_string.restype = c.c_char_p
             _LIB = lib

@@ -2,10 +2,10 @@
 
 Counterpart of ``grafimo_tpu/workflows.py``.  ``buildvg`` is host-only
 and copied (``:70-128``) because the reference module imports jax; so
-are the graph-loading helpers (``:131-302``).  ``findmotif`` runs the
-default run engine on one explicit torch device (``:366-417, 453-517,
-552-578``).  Options whose device half is not ported yet raise with the
-``ROADMAP.md`` item that ports them.
+are the graph-loading helpers (``:131-302``).  ``findmotif`` runs either
+engine -- the default run engine or the per-window engine -- on one
+explicit torch device (``:366-417, 453-578``).  Options whose device half
+is not ported yet raise with the ``ROADMAP.md`` item that ports them.
 """
 
 import os
@@ -292,11 +292,6 @@ def _scan_cache_path(workflow: Findmotif, regions, width: int) -> str:
 
 def _reject_unported(workflow: Findmotif) -> None:
     """Raise for options whose device half is not ported yet."""
-    if workflow.engine != "runs":
-        raise NotPortedError(
-            f"--engine {workflow.engine} is not ported to torch yet "
-            "(ROADMAP A11); use the default --engine runs"
-        )
     if workflow.profile_dir:
         raise NotPortedError(
             "--profile is not ported to torch yet (ROADMAP A15)"
@@ -310,32 +305,16 @@ def _reject_unported(workflow: Findmotif) -> None:
         )
 
 
-def findmotif(workflow: Findmotif, device: torch.device) -> List[str]:
-    """Scan the variation graph(s) for motif occurrences on ``device``;
-    returns the written report directories (empty for ``--text-only``)."""
-    workflow.validate()
-    _reject_unported(workflow)
-    print_welcome()
-    check_deps(device)
+def _scan_runs(workflow: Findmotif, motif_set: MotifSet, regions, graphs,
+               device: torch.device) -> Dict[str, object]:
+    """The run engine: one extraction + scan pass per distinct width,
+    shared by all motifs of that width (reference grafimo.py:176;
+    ``grafimo_tpu/workflows.py:453-517``)."""
     from grafimo_tpu_torch.runscan import (
         build_region_runs,
         compute_results_runs,
     )
 
-    motif_set = MotifSet()
-    for motif_file in workflow.motifs:
-        motif_set.add(
-            load_motifs(
-                motif_file, workflow.bgfile, workflow.pseudo,
-                workflow.no_reverse,
-            )
-        )
-    print(f"Read {len(motif_set)} motif(s); widths: {sorted(motif_set.widths)}")
-    regions, region_num = read_bed_regions(workflow.bedfile)
-    print(f"Found {region_num} regions in {workflow.bedfile}")
-    graphs = _load_graphs(workflow, list(regions.keys()))
-    # one extraction + scan pass per distinct width, shared by all motifs
-    # of that width (reference grafimo.py:176)
     results: Dict[str, object] = {}
     for width in sorted(motif_set.widths):
         t0 = time.time()
@@ -380,6 +359,83 @@ def findmotif(workflow: Findmotif, device: torch.device) -> List[str]:
             cache_path=cache_path,
         )
         results.update(dfs)
+    return results
+
+
+def _scan_windows(workflow: Findmotif, motif_set: MotifSet, regions,
+                  graphs, device: torch.device) -> Dict[str, object]:
+    """The per-window engine: every region's windows on both strands,
+    then one scoring pass per motif (``grafimo_tpu/workflows.py:
+    518-551``)."""
+    from grafimo_tpu_torch.graph.extract import extract_region
+    from grafimo_tpu_torch.scan import ScanStats, compute_results
+
+    results: Dict[str, object] = {}
+    batches_per_width = {}
+    for width in sorted(motif_set.widths):
+        batches = []
+        t0 = time.time()
+        for chrom, (display, graph) in graphs.items():
+            for start, stop in regions.get(chrom, []):
+                batch = extract_region(
+                    graph, start, stop, width, chrom_display=display,
+                    both_strands=True,
+                )
+                if len(batch):
+                    batches.append(batch)
+        batches_per_width[width] = batches
+        if workflow.verbose:
+            n = sum(len(b) for b in batches)
+            print(
+                f"width {width}: extracted {n} candidate windows in "
+                f"{time.time() - t0:.2f}s"
+            )
+    for motif in motif_set:
+        stats = ScanStats()
+        results[motif.motif_id] = compute_results(
+            motif,
+            batches_per_width[motif.width],
+            device,
+            threshold=workflow.threshold,
+            no_qvalue=workflow.no_qvalue,
+            qval_t=workflow.qval_t,
+            no_reverse=workflow.no_reverse,
+            recomb=workflow.recomb,
+            stats=stats,
+        )
+        if workflow.verbose:
+            print(
+                f"window scan {motif.motif_id}: {stats.seqs_scanned} window "
+                f"rows scored in {stats.scoring_time:.3f}s"
+            )
+        print(f"Scanned sequences:\t{stats.seqs_scanned}")
+        print(f"Scanned nucleotides:\t{stats.nucs_scanned}")
+    return results
+
+
+def findmotif(workflow: Findmotif, device: torch.device) -> List[str]:
+    """Scan the variation graph(s) for motif occurrences on ``device``;
+    returns the written report directories (empty for ``--text-only``)."""
+    workflow.validate()
+    _reject_unported(workflow)
+    print_welcome()
+    check_deps(device)
+    motif_set = MotifSet()
+    for motif_file in workflow.motifs:
+        motif_set.add(
+            load_motifs(
+                motif_file, workflow.bgfile, workflow.pseudo,
+                workflow.no_reverse,
+            )
+        )
+    print(f"Read {len(motif_set)} motif(s); widths: {sorted(motif_set.widths)}")
+    regions, region_num = read_bed_regions(workflow.bedfile)
+    print(f"Found {region_num} regions in {workflow.bedfile}")
+    graphs = _load_graphs(workflow, list(regions.keys()))
+    if workflow.engine == "runs":
+        results = _scan_runs(workflow, motif_set, regions, graphs, device)
+    else:
+        results = _scan_windows(workflow, motif_set, regions, graphs, device)
     outdirs = []
     chrom_graphs = {d: g for (d, g) in graphs.values()}
     for motif in motif_set:

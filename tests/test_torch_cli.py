@@ -1,7 +1,8 @@
 """The port's CLI (``python -m grafimo_tpu_torch``) against the
-reference's on the toy data: byte-identical TSV and GFF3 reports, a run
-with JAX blocked from import, and the loud failures (no card behind
-``--device cuda``, options not ported yet)."""
+reference's on the toy data: byte-identical TSV and GFF3 reports from
+both engines, the two engines against each other, a run with JAX blocked
+from import, and the loud failures (no card behind ``--device cuda``,
+options not ported yet)."""
 
 import ast
 import os
@@ -9,6 +10,7 @@ import pathlib
 import subprocess
 import sys
 
+import pandas as pd
 import pytest
 import torch
 
@@ -31,6 +33,11 @@ FLOWS = {
         "-d", ["-m", "MA0139.1.meme", "-t", "1", "--recomb", "--no-reverse",
                "--no-qvalue"]),
 }
+# the same flows through the per-window engine
+FLOWS.update({
+    f"windows_{name}": (src, [*rest, "--engine", "windows"])
+    for name, (src, rest) in list(FLOWS.items())
+})
 
 
 def _build(main, input_dir, outdir):
@@ -72,14 +79,83 @@ def test_reports_byte_identical(input_dir, tmp_path, toy_bed, flow,
         got = (tmp_path / "port" / name).read_bytes()
         assert len(got.splitlines()) > 1
         assert got == (tmp_path / "ref" / name).read_bytes(), name
-    if flow == "dir_jaspar_topgraphs":
+    if flow.endswith("dir_jaspar_topgraphs"):
         assert (tmp_path / "port" / "top_graphs" / "x:0-20.dot").read_bytes() \
             == (tmp_path / "ref" / "top_graphs" / "x:0-20.dot").read_bytes()
 
 
-def test_cli_runs_with_jax_blocked(input_dir, tmp_path, toy_bed):
-    """The port never imports jax: in a fresh interpreter where importing
-    jax fails, buildvg + findmotif run and write the reference's TSV."""
+def _sorted_report(path):
+    """A TSV report in the order ``tests/test_multi_motif.py:113-120``
+    sorts both engines' reports before comparing them."""
+    return (
+        pd.read_csv(path, sep="\t", index_col=0)
+        .sort_values(["sequence_name", "p-value", "start", "stop", "strand",
+                      "matched_sequence"])
+        .reset_index(drop=True)
+    )
+
+
+def _scanned(out):
+    lines = [l for l in out.splitlines() if l.startswith("Scanned")]
+    assert len(lines) == 2, lines
+    return lines
+
+
+@pytest.mark.parametrize("extra", [["--recomb"], ["--recomb", "--no-reverse"]])
+def test_engines_agree(input_dir, tmp_path, toy_bed, capsys, extra):
+    """The port's window and run engines give the same report rows and
+    print the same ``Scanned`` counters
+    (``tests/test_multi_motif.py:89``, ``tests/test_cli_end_to_end.py:132``)."""
+    graphs = _build(port_main, input_dir, tmp_path / "g")
+    capsys.readouterr()
+    reports, counters = {}, {}
+    for engine in ("runs", "windows"):
+        out = tmp_path / engine
+        assert port_main([
+            "findmotif", "-d", str(graphs), "-b", str(toy_bed),
+            "-m", str(input_dir / "MA0139.1.jaspar"), "-t", "1", *extra,
+            "--engine", engine, "-o", str(out), "--device", "cpu",
+        ]) == 0
+        counters[engine] = _scanned(capsys.readouterr().out)
+        reports[engine] = _sorted_report(out / "grafimo_out.tsv")
+    assert len(reports["runs"]) > 0
+    pd.testing.assert_frame_equal(reports["runs"], reports["windows"],
+                                  check_exact=True)
+    assert counters["runs"] == counters["windows"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["windows", "runs"])
+def test_card_report_matches_cpu(input_dir, tmp_path, toy_bed, engine):
+    """On a card: each engine's report on cuda byte-identical to its report
+    on the CPU, the window engine through both of its kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from grafimo_tpu_torch.ops import hist, scan_packed
+
+    graphs = _build(port_main, input_dir, tmp_path / "g")
+    for dev in ("cuda", "cpu"):
+        hist.reset_counts()
+        scan_packed.reset_counts()
+        assert port_main([
+            *_findmotif_args(input_dir, graphs, toy_bed,
+                             "dir_jaspar_topgraphs", tmp_path / dev),
+            "--engine", engine, "--device", dev,
+        ]) == 0
+        if dev == "cuda":
+            assert hist.COUNTS["kernel"] > 0 and hist.COUNTS["plain"] == 0
+            if engine == "windows":
+                assert scan_packed.COUNTS["kernel"] > 0
+            assert scan_packed.COUNTS["plain"] == 0
+    for name in ("grafimo_out.tsv", "grafimo_out.gff"):
+        assert (tmp_path / "cuda" / name).read_bytes() == (
+            tmp_path / "cpu" / name).read_bytes()
+
+
+def _run_jax_blocked(input_dir, tmp_path, toy_bed, flow):
+    """buildvg + findmotif through the port's CLI in a fresh interpreter
+    where importing jax fails; then the reference's report of the same
+    flow, for comparison."""
     prog = (
         "import sys\n"
         "sys.modules['jax'] = None\n"  # any later 'import jax' raises
@@ -92,8 +168,7 @@ def test_cli_runs_with_jax_blocked(input_dir, tmp_path, toy_bed):
     args = [
         "buildvg", "-l", str(input_dir / "test.fa"),
         "-v", str(input_dir / "test.vcf.gz"), "-o", str(graphs),
-        *_findmotif_args(input_dir, graphs, toy_bed, "dir_jaspar_topgraphs",
-                         tmp_path / "port"),
+        *_findmotif_args(input_dir, graphs, toy_bed, flow, tmp_path / "port"),
         "--device", "cpu", "--debug",
     ]
     proc = subprocess.run(
@@ -103,11 +178,23 @@ def test_cli_runs_with_jax_blocked(input_dir, tmp_path, toy_bed):
     assert proc.returncode == 0, proc.stderr[-2000:]
     g_ref = _build(ref_main, input_dir, tmp_path / "g_ref")
     assert ref_main(_findmotif_args(
-        input_dir, g_ref, toy_bed, "dir_jaspar_topgraphs", tmp_path / "ref"
+        input_dir, g_ref, toy_bed, flow, tmp_path / "ref"
     )) == 0
     assert (tmp_path / "port" / "grafimo_out.tsv").read_bytes() == (
         tmp_path / "ref" / "grafimo_out.tsv"
     ).read_bytes()
+
+
+def test_cli_runs_with_jax_blocked(input_dir, tmp_path, toy_bed):
+    """The port never imports jax: in a fresh interpreter where importing
+    jax fails, buildvg + findmotif run and write the reference's TSV."""
+    _run_jax_blocked(input_dir, tmp_path, toy_bed, "dir_jaspar_topgraphs")
+
+
+def test_window_engine_runs_with_jax_blocked(input_dir, tmp_path, toy_bed):
+    """The same with ``--engine windows``: its modules import no jax."""
+    _run_jax_blocked(input_dir, tmp_path, toy_bed,
+                     "windows_dir_jaspar_topgraphs")
 
 
 def test_cuda_without_a_card_fails_loudly(input_dir, tmp_path, toy_bed,
@@ -125,7 +212,6 @@ def test_cuda_without_a_card_fails_loudly(input_dir, tmp_path, toy_bed,
 @pytest.mark.parametrize(
     "extra,item",
     [
-        (["--engine", "windows"], "A11"),
         (["--profile", "prof"], "A15"),
         (["--coordinator", "localhost:1234"], "A13"),
         (["--num-processes", "2"], "A13"),
@@ -180,3 +266,4 @@ def test_package_has_no_jax_import():
                     "grafimo_tpu.graph.extract",
                 )), (path, name)
     assert os.path.isfile(pkg / "csrc" / "hist.cu")
+    assert os.path.isfile(pkg / "csrc" / "scan_packed.cu")
