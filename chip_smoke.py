@@ -7,38 +7,53 @@ NVIDIA card.
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name and power limit,
-   pandas, and the shared C++ engine (built with g++ on first use);
+   pandas, and the port's C++ engine (built with g++ on first use);
 2. build: the CUDA kernels, compiled with nvcc for sm_90a;
 3. the exact-histogram kernel against its plain PyTorch version on the
    card, bit for bit, at the main path's shapes (and past the TPU
-   kernel's 16-column cap, and on its global-memory path), with CUDA
-   event timings;
+   kernel's 16-column cap in column groups, and on its cluster path for
+   bins past one block), and -- after phase
+   5 -- on real CTCF scores of phase 5's chromosome (the peaked case),
+   with and without warp-aggregated atomics;
 4. ``scan_batches`` over a seeded mix of all five batch kinds on the card
    and on the CPU: identical histograms and hits;
 5. the main path at chromosome scale: a synthetic chromosome at the
-   1KGP profile (``tools/bench_chrom_scale.py``), ``buildvg``, then a
-   whole-chromosome CTCF ``findmotif`` through the port's CLI on the
+   1KGP profile (``grafimo_tpu_torch/utils/synth.py``), ``buildvg``, then
+   a whole-chromosome CTCF ``findmotif`` through the port's CLI on the
    card, which must launch the histogram kernel and never its plain
    version; then a 1 Mbp region around the first dense pocket on the
    card and on the CPU, whose reports must be byte-identical;
-6. the packed-window scoring kernel against its plain version on the
-   card, bit for bit, at the window engine's chunk shape and around it
+6. the packed-window kernel against its plain versions on the card, bit
+   for bit: scores only, at the window engine's chunk shape and around it
    (fwd + RC columns, k = 8 and 30, M = 16, N and PAD rows, a ragged B,
-   LUT entries at 1020), with CUDA event timings;
+   LUT entries at 1020); then fused with the histogram, scores and the
+   int64 running histogram over two accumulating calls, at the window
+   engine's region batch (B = 2,653, CTCF), at 2^18, at a ragged B, at
+   M = 16 and at k = 70;
 7. the exact-histogram kernel against its plain version over the range
    of the TPU's histogram variants (native ``(n, M)`` layout, n not a
-   tile multiple, k in {8, 19, 32}, M in {1, 3, 16});
+   tile multiple, k in {8, 19, 32}, M in {1, 3, 16}), in column groups
+   (M = 40) and on its cluster path (k = 70), and at the window engine's
+   region batch;
 8. the per-window engine (``findmotif --engine windows``) on phase 5's
    graph over a seeded set of 1,000 peak-sized regions: on the card,
-   where it must launch both kernels and neither plain version, then on
-   the CPU, whose report must be byte-identical, then the run engine on
-   the card, whose report must hold the same rows.
+   where it must launch the fused kernel once per region, and neither a
+   plain version nor a separate histogram, then on the CPU, whose report
+   must be byte-identical, then the run engine on the card, whose report
+   must hold the same rows.
+
+Each kernel case prints its time as the median of 10 single launches and
+as the mean of 100 back-to-back launches (CUDA events), its device time
+per launch (``torch.profiler``), the plain version's time, the time of
+one PyTorch call computing the same function where there is one
+(``torch.bincount``), and its bound: the bytes the function must move
+over the card's 3.35 TB/s.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without a CUDA device the script exits 1 before any phase.  It imports
-no JAX: ``jax`` is blocked from import in this process and in the ones
-it starts.
+nothing of JAX or the reference package ``grafimo_tpu``: both are
+blocked from import in this process and in the ones it starts.
 """
 
 import contextlib
@@ -57,17 +72,17 @@ SMOKE_MBP = 10  # the repo's 10 Mbp demo / round-5 profile size
 SEED = 0
 HAPLOTYPES = 5096  # 2548 diploid samples, the 1KGP panel
 MOTIF = os.path.join(HERE, "tests", "data", "input", "MA0139.1.meme")
-BLOCK_JAX = "import sys; sys.modules['jax'] = None\n"
+BLOCK_JAX = ("import sys; "
+             "sys.modules['jax'] = sys.modules['grafimo_tpu'] = None\n")
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's device memory rate
 
-# inputs at the 1KGP profile, written by the benchmark tool's own
-# generators (1/30 bp variants, 12% indels, 3 dense pockets)
+# inputs at the 1KGP profile, written by the port's copy of the
+# benchmark tool's generators (1/30 bp variants, 12% indels, 3 dense
+# pockets)
 SYNTH_PROG = BLOCK_JAX + r"""
-import importlib.util, json, os, numpy as np
-root, wd, mbp, seed, hap = sys.argv[1:6]
-spec = importlib.util.spec_from_file_location(
-    "bench_chrom_scale", os.path.join(root, "tools", "bench_chrom_scale.py"))
-bcs = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(bcs)
+import json, os, numpy as np
+from grafimo_tpu_torch.utils import synth as bcs
+wd, mbp, seed, hap = sys.argv[1:5]
 rng = np.random.default_rng(int(seed))
 L, H = int(float(mbp) * 1e6), int(hap)
 seq, pos, pockets = bcs.synth_chrom(rng, L, H)
@@ -141,6 +156,7 @@ def phase_build():
 
 
 def _time_ms(torch, fn, reps=10):
+    """Median of ``reps`` single calls, CUDA events around each."""
     fn()  # warm
     torch.cuda.synchronize()
     times = []
@@ -153,6 +169,109 @@ def _time_ms(torch, fn, reps=10):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+def _back_to_back_ms(torch, fn, reps=100):
+    """Mean of ``reps`` calls issued back to back, CUDA events around the
+    run."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _device_ms(torch, fn, kernel, reps=20):
+    """Device time of one launch of the CUDA kernel named ``kernel``, from
+    ``torch.profiler`` over ``reps`` calls; None when the profiler shows no
+    device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 -- reported as not measured
+        log(f"    profiler failed ({e}); device time not measured")
+        return None
+    total = count = 0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total += getattr(evt, "device_time_total", None) or getattr(
+                evt, "cuda_time_total", 0)
+            count += evt.count
+    return total / count / 1e3 if count and total else None
+
+
+def _timings(torch, fn, kernel, plain=None, library=None):
+    """A kernel case's times in ms: ``ms`` (median of 10 single launches),
+    ``ms_back_to_back`` (mean of 100), ``device_ms`` (profiler),
+    ``plain_ms`` and ``library_ms`` (median of 10 single calls)."""
+    return {
+        "ms": _time_ms(torch, fn),
+        "ms_back_to_back": _back_to_back_ms(torch, fn),
+        "device_ms": _device_ms(torch, fn, kernel),
+        "plain_ms": _time_ms(torch, plain) if plain else None,
+        "library_ms": _time_ms(torch, library) if library else None,
+    }
+
+
+def _fmt(t, bound_ms):
+    def f(x):
+        return "n/a" if x is None else f"{x:.4f}"
+
+    return (f"kernel {f(t['ms'])} ms single, {f(t['ms_back_to_back'])} ms "
+            f"back to back, device {f(t['device_ms'])} ms; plain "
+            f"{f(t['plain_ms'])} ms; torch.bincount {f(t['library_ms'])} ms; "
+            f"bound {bound_ms:.5f} ms")
+
+
+def _bincount_call(torch, s, hist_size):
+    """One ``torch.bincount`` over the precomputed ``value * M + column``
+    of the in-range scores: the PyTorch call that counts what exact_hist
+    counts, timed alone."""
+    m = s.shape[-1]
+    flat = s.reshape(-1, m)
+    keep = (flat >= 0) & (flat < hist_size)
+    cols = torch.arange(m, device=s.device).expand_as(flat)
+    idx = (flat.to(torch.int64) * m + cols)[keep]
+    return lambda: torch.bincount(idx, minlength=hist_size * m)
+
+
+def _hist_bound_ms(s, hist_size):
+    """The histogram must read the score plane once and write its bins
+    once."""
+    m = s.shape[-1]
+    return (s.numel() * 4 + hist_size * m * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def _check_hist_case(torch, label, s, hist_size):
+    """Kernel vs plain, bit for bit, then the case's timings."""
+    from grafimo_tpu_torch.ops import hist
+
+    got = hist.exact_hist(s, hist_size)
+    want = hist.exact_hist_reference(s, hist_size)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err or not torch.equal(got, want):
+        raise RuntimeError(f"kernel != plain at {label}: max err {err}")
+    del got, want
+    t = _timings(torch, lambda: hist.exact_hist(s, hist_size),
+                 "exact_hist_kernel",
+                 plain=lambda: hist.exact_hist_reference(s, hist_size),
+                 library=_bincount_call(torch, s, hist_size))
+    bound = _hist_bound_ms(s, hist_size)
+    log(f"exact_hist vs plain [{label}] shape {tuple(s.shape)} bins "
+        f"{hist_size}: bit-identical, max_abs_err 0; {_fmt(t, bound)}")
+    return dict(t, label=label, max_abs_err=err, bound_ms=bound)
 
 
 def _main_path_scores(torch, rows, r, k, m, gen):
@@ -171,37 +290,80 @@ def _main_path_scores(torch, rows, r, k, m, gen):
 
 
 def phase_kernel_vs_plain(torch):
-    from grafimo_tpu_torch.ops.hist import exact_hist, exact_hist_reference
-
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = r = 2048
     cases = [  # (label, k, M); hist_size = 1000*k + 2 (remapped bins)
         ("main path B=R=2048 k=19 M=2", 19, 2),
-        ("M=16 (TPU kernel cap)", 19, 16),
-        ("M=40 (past the TPU cap)", 19, 40),
+        ("M=16 (TPU kernel cap; column groups)", 19, 16),
+        ("M=40 (past the TPU cap; column groups)", 19, 40),
         ("k=30", 30, 2),
-        ("k=70 (global-memory path)", 70, 2),
+        ("k=70 (cluster path)", 70, 2),
     ]
     out = []
     for label, k, m in cases:
         hist_size = 1000 * k + 2
         s = _main_path_scores(torch, rows, r, k, m, gen)
-        got = exact_hist(s, hist_size)
-        want = exact_hist_reference(s, hist_size)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err or not torch.equal(got, want):
-            raise RuntimeError(f"kernel != plain at {label}: max err {err}")
-        ms = _time_ms(torch, lambda: exact_hist(s, hist_size))
-        plain_ms = _time_ms(torch, lambda: exact_hist_reference(s, hist_size))
-        log(f"kernel vs plain [{label}] shape {tuple(s.shape)} bins "
-            f"{hist_size}: bit-identical, max_abs_err 0, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms (median of 10, CUDA events)")
-        out.append({"label": label, "ms": ms, "plain_ms": plain_ms,
-                    "max_abs_err": err})
-        del s, got, want
+        out.append(_check_hist_case(torch, label, s, hist_size))
+        del s
     torch.cuda.empty_cache()
     return out
+
+
+def _ctcf_lut(torch, fwd_rc=True):
+    """CTCF (MA0139.1, the smoke's motif) as the port's LUT on the card:
+    forward and reverse-complement columns, or forward only."""
+    import numpy as np
+
+    from grafimo_tpu_torch.models.parse import load_motifs
+    from grafimo_tpu_torch.ops.score_runs import (
+        pwm_lut_from_kernel,
+        pwms_to_conv_kernel,
+        reverse_complement_pwm,
+    )
+    from grafimo_tpu_torch.utils.constants import UNIF
+
+    ctcf = load_motifs(MOTIF, UNIF, 0.1, False)[0]
+    mats = [ctcf.score_matrix]
+    if fwd_rc:
+        mats.append(reverse_complement_pwm(ctcf.score_matrix))
+    lut = pwm_lut_from_kernel(pwms_to_conv_kernel(mats), torch.device("cuda"))
+    mins = np.array([ctcf.min_score] * len(mats), np.int32)
+    return ctcf, lut, torch.from_numpy(mins).cuda()
+
+
+def _chrom_codes(wd, n):
+    """``n`` base codes (A=0..T=3) from the middle of phase 5's synthetic
+    chromosome."""
+    import numpy as np
+
+    with open(os.path.join(wd, "ref.fa"), "rb") as f:
+        f.readline()
+        text = f.read().replace(b"\n", b"")
+    lo = (len(text) - n) // 2
+    table = np.zeros(256, np.uint8)
+    table[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    return table[np.frombuffer(text[lo : lo + n], np.uint8)]
+
+
+def phase_peaked_hist(torch, wd):
+    """Phase 3's peaked case: the main path's (2048, 2030, 2) plane of
+    real CTCF scores (forward and reverse complement) over 2048 rows of
+    2048 bases of phase 5's chromosome, + 1 (the remap).  Real scores
+    pile up on a few hundred bins, which is where atomics collide."""
+    from grafimo_tpu_torch.ops.score_runs import _window_scores
+
+    rows = r = 2048
+    ctcf, lut, _ = _ctcf_lut(torch)
+    codes = torch.from_numpy(_chrom_codes(wd, rows * r).reshape(rows, r))
+    s = (_window_scores(codes.cuda().long(), lut, ctcf.width) + 1).contiguous()
+    hist_size = 1000 * ctcf.width + 2
+    busy = int((torch.bincount(s.flatten()) > 0).sum())
+    log(f"peaked case: {s.numel()} CTCF scores over {busy} distinct bins")
+    case = _check_hist_case(torch, "peaked: real CTCF scores, main path "
+                            "B=R=2048 k=19 M=2", s, hist_size)
+    del s
+    torch.cuda.empty_cache()
+    return case
 
 
 def _mix(rb, graph, rng, k):
@@ -332,7 +494,7 @@ def phase_main_path(torch, wd):
     from grafimo_tpu_torch.ops import hist
 
     out, dt = run_checked(
-        [sys.executable, "-c", SYNTH_PROG, HERE, wd, str(SMOKE_MBP),
+        [sys.executable, "-c", SYNTH_PROG, wd, str(SMOKE_MBP),
          str(SEED), str(HAPLOTYPES)], timeout=900,
     )
     synth = json.loads(out.strip().splitlines()[-1])
@@ -414,6 +576,15 @@ def _random_packed(torch, b, k, m, gen, flag_frac=0.0, high=1001):
     return packed, flags, lut, mins
 
 
+def _scan_bound_ms(b, k, m, out_bytes=None):
+    """Scoring must read each row's ceil(k/4) bytes and flag, the LUT and
+    minima once, and write the (B, M) int32 scores once."""
+    from grafimo_tpu_torch.ops.pack import packed_width
+
+    nbytes = b * (packed_width(k) + 1) + k * 4 * m * 4 + m * 4 + b * m * 4
+    return (nbytes + (out_bytes or 0)) / HBM_BYTES_PER_S * 1e3
+
+
 def phase_scan_packed_vs_plain(torch):
     from grafimo_tpu_torch.ops.scan_packed import (
         score_packed,
@@ -429,6 +600,7 @@ def phase_scan_packed_vs_plain(torch):
         ("k=8 M=1", CHUNK, 8, 1, 0.0, 1001),
         ("B=2^18-7, 1% N + 1% PAD rows", CHUNK - 7, 19, 2, 0.01, 1001),
         ("LUT entries at 1020", CHUNK, 19, 2, 0.0, 1021),
+        ("k=60 M=300 (LUT in column groups)", 5000, 60, 300, 0.01, 1001),
     ]
     out = []
     for label, b, k, m, frac, high in cases:
@@ -445,15 +617,108 @@ def phase_scan_packed_vs_plain(torch):
                                f"max err {err}")
         if frac and not ((got == -1).any() and (flags == 1).any()):
             raise RuntimeError(f"{label}: no N or PAD rows drawn")
-        ms = _time_ms(torch, lambda: score_packed(packed, flags, lut, mins))
-        plain_ms = _time_ms(
-            torch, lambda: score_packed_reference(packed, flags, lut, mins))
+        t = _timings(
+            torch, lambda: score_packed(packed, flags, lut, mins),
+            "scan_packed_kernel",
+            plain=lambda: score_packed_reference(packed, flags, lut, mins))
+        bound = _scan_bound_ms(b, k, m)
         log(f"score_packed vs plain [{label}] packed {tuple(packed.shape)} "
-            f"M={m}: bit-identical, max_abs_err 0, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms (median of 10, CUDA events)")
-        out.append({"label": label, "ms": ms, "plain_ms": plain_ms,
-                    "max_abs_err": err})
+            f"M={m}: bit-identical, max_abs_err 0; {_fmt(t, bound)}")
+        out.append(dict(t, label=label, max_abs_err=err, bound_ms=bound))
         del packed, flags, lut, mins, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fused_case(torch, label, calls, lut, mins, hist_size):
+    """The fused kernel against its plain composition on each of ``calls``
+    (``(packed, flags)`` pairs) in turn, accumulating into one int64
+    histogram each: scores and the running histogram bit for bit after
+    every call; then the timings of the first call's shape."""
+    from grafimo_tpu_torch.ops import scan_packed as sp
+
+    m = lut.shape[2]
+    hist = torch.zeros((hist_size, m), dtype=torch.int64, device="cuda")
+    want_hist = torch.zeros_like(hist)
+    touched = None
+    for packed, flags in calls:
+        got = sp.score_packed_hist(packed, flags, lut, mins, hist)
+        want = sp.score_packed_hist_reference(packed, flags, lut, mins,
+                                              want_hist)
+        torch.cuda.synchronize()
+        err = max(int((got.long() - want.long()).abs().max()),
+                  int((hist - want_hist).abs().max()))
+        if err or not (torch.equal(got, want)
+                       and torch.equal(hist, want_hist)):
+            raise RuntimeError(f"fused score+count != plain at {label}: max "
+                               f"err {err}")
+        if touched is None:
+            # the bins the first call's counts touch, each read and
+            # written once (int64)
+            touched = int((want_hist > 0).sum())
+    if int(hist.sum()) <= 0:
+        raise RuntimeError(f"{label}: nothing counted")
+    packed, flags = calls[0]
+    bound = _scan_bound_ms(packed.shape[0], lut.shape[0], m,
+                           out_bytes=touched * 16)
+    t = _timings(
+        torch, lambda: sp.score_packed_hist(packed, flags, lut, mins, hist),
+        "scan_packed_kernel",
+        plain=lambda: sp.score_packed_hist_reference(packed, flags, lut, mins,
+                                                     want_hist))
+    log(f"fused score+count vs plain [{label}] {len(calls)} calls, first "
+        f"packed {tuple(packed.shape)}, M={m}, {hist_size} bins: scores and "
+        f"int64 histogram bit-identical; {_fmt(t, bound)}")
+    return dict(t, label=label, max_abs_err=err, bound_ms=bound)
+
+
+def phase_fused_vs_plain(torch):
+    """Phase 6's fused cases: score and count into an int64 running
+    histogram, against the plain composition (scores, clamp, bincount,
+    add), over two accumulating calls each."""
+    import numpy as np
+
+    from grafimo_tpu_torch.ops.pack import pack_codes
+    from grafimo_tpu_torch.ops.score_runs import hist_size_for_width
+    from grafimo_tpu_torch.scan import CHUNK
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    out = []
+    # the window engine's region batch: 2,653 rows (1,326,515 windows per
+    # strand over 1,000 peaks), CTCF forward column, N and PAD rows
+    ctcf, lut, mins = _ctcf_lut(torch, fwd_rc=False)
+    calls = []
+    for b in (WINDOW_BATCH, WINDOW_BATCH - 101):
+        codes = rng.integers(0, 4, (b, ctcf.width)).astype(np.uint8)
+        codes[rng.random(b) < 0.01, 3] = 4  # N windows
+        codes[-3:] = 5  # padding rows
+        packed, flags = pack_codes(codes)
+        calls.append((torch.from_numpy(packed).cuda(),
+                      torch.from_numpy(flags).cuda()))
+    out.append(_fused_case(torch, f"window path B={WINDOW_BATCH} CTCF k=19 "
+                           f"M=1", calls, lut, mins,
+                           hist_size_for_width(ctcf.width)))
+    cases = [  # (label, B of the two calls, k, M, LUT bound)
+        ("B=2^18 k=19 M=1", (CHUNK, CHUNK), 19, 1, 1001),
+        ("ragged B, k=19 M=2, LUT at 1020", (CHUNK - 7, 1001), 19, 2, 1021),
+        ("M=16 (column groups)", (20000, 333), 19, 16, 1001),
+        ("k=70 (cluster)", (20000, 333), 70, 1, 1001),
+    ]
+    for label, sizes, k, m, high in cases:
+        lut = mins = None
+        calls = []
+        for b in sizes:
+            packed, flags, lut_b, mins_b = _random_packed(
+                torch, b, k, m, gen, 0.01, high)
+            if lut is None:
+                lut, mins = lut_b, mins_b
+                if high > 1001:
+                    lut[:, :, 0] = 1020
+            calls.append((packed, flags))
+        out.append(_fused_case(torch, label, calls, lut, mins,
+                               hist_size_for_width(k)))
+        del calls, lut, mins
     torch.cuda.empty_cache()
     return out
 
@@ -461,45 +726,42 @@ def phase_scan_packed_vs_plain(torch):
 def phase_hist_variants(torch):
     """Kernels 2-4 of the TPU's histogram share kernel 1's contract; the
     one CUDA kernel is held to it over their parameter range, on the
-    window path's native (n, M) score layout."""
-    from grafimo_tpu_torch.ops.hist import exact_hist, exact_hist_reference
+    window path's native (n, M) score layout, and on its cluster path."""
     from grafimo_tpu_torch.ops.scan_packed import score_packed_reference
     from grafimo_tpu_torch.ops.score_windows import hist_size_for_width
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    n = (1 << 18) + 123
     out = []
-    for k in (8, 19, 32):
-        for m in (1, 3, 16):
-            hist_size = hist_size_for_width(k)
-            packed, flags, lut, mins = _random_packed(torch, n, k, m, gen,
-                                                      0.01)
-            s = score_packed_reference(packed, flags, lut, mins)
-            # a few scores past the last bin, which the contract drops
-            over = torch.rand(s.shape, device=s.device, generator=gen) < 0.005
-            s = s.masked_fill_(over, hist_size + 7).contiguous()
-            got = exact_hist(s, hist_size)
-            want = exact_hist_reference(s, hist_size)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            if err or not torch.equal(got, want):
-                raise RuntimeError(f"exact_hist != plain at n={n} k={k} "
-                                   f"M={m}: max err {err}")
-            ms = _time_ms(torch, lambda: exact_hist(s, hist_size))
-            plain_ms = _time_ms(torch,
-                                lambda: exact_hist_reference(s, hist_size))
-            log(f"exact_hist vs plain [(n, M) = ({n}, {m}), k={k}, "
-                f"{hist_size} bins]: bit-identical, kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms (median of 10, CUDA events)")
-            out.append({"label": f"k={k} M={m}", "ms": ms,
-                        "plain_ms": plain_ms, "max_abs_err": err})
-            del packed, flags, lut, mins, s, over, got, want
+    # the window engine's region batch, as it was counted before the fused
+    # kernel took the count in
+    _, lut, mins = _ctcf_lut(torch, fwd_rc=False)
+    packed, flags, _, _ = _random_packed(torch, WINDOW_BATCH, 19, 1, gen, 0.01)
+    s = score_packed_reference(packed, flags, lut, mins).clamp(
+        max=hist_size_for_width(19) - 1)
+    out.append(_check_hist_case(torch, f"window shape ({WINDOW_BATCH}, 1), "
+                                f"CTCF k=19", s, hist_size_for_width(19)))
+    n = (1 << 18) + 123
+    for k, m in [(k, m) for k in (8, 19, 32) for m in (1, 3, 16)] + [
+            (70, 1), (70, 3), (19, 40)]:
+        hist_size = hist_size_for_width(k)
+        packed, flags, lut, mins = _random_packed(torch, n, k, m, gen, 0.01)
+        s = score_packed_reference(packed, flags, lut, mins)
+        # a few scores past the last bin, which the contract drops
+        over = torch.rand(s.shape, device=s.device, generator=gen) < 0.005
+        s = s.masked_fill_(over, hist_size + 7).contiguous()
+        block = 58112  # bins one block holds on an H100
+        path = (" (cluster)" if hist_size > block
+                else " (column groups)" if m * hist_size > block else "")
+        out.append(_check_hist_case(torch, f"(n, M) = ({n}, {m}), k={k}"
+                                    f"{path}", s, hist_size))
+        del packed, flags, lut, mins, s, over
     torch.cuda.empty_cache()
     return out
 
 
 PEAKS = 1000  # a ChIP-seq peak set on one chromosome
 PEAK_BP = 500
+WINDOW_BATCH = 2653  # window rows of one peak (both strands), on average
 
 
 def _sorted_report(tsv: bytes):
@@ -548,10 +810,14 @@ def phase_window_engine(torch, wd, gdir, synth):
     text, wall, (tsv_cuda, n_hits) = run("windows", "cuda")
     launches = {"scan_packed": dict(scan_packed.COUNTS),
                 "exact_hist": dict(hist.COUNTS)}
-    for name, c in launches.items():
-        if c["kernel"] <= 0 or c["plain"] != 0:
-            raise RuntimeError(f"window engine did not run on the {name} "
-                               f"kernel: {c}")
+    fused = launches["scan_packed"]
+    if (fused["fused"] <= 0 or fused["kernel"] != fused["fused"]
+            or fused["plain"] != 0):
+        raise RuntimeError(f"window engine did not run on the fused "
+                           f"kernel alone: {fused}")
+    if launches["exact_hist"] != {"kernel": 0, "plain": 0}:
+        raise RuntimeError(f"window engine ran a separate histogram: "
+                           f"{launches['exact_hist']}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     m_ext = re.search(r"extracted (\d+) candidate windows in ([\d.]+)s", text)
     m_scan = re.search(r"(\d+) window rows scored in ([\d.]+)s", text)
@@ -559,6 +825,9 @@ def phase_window_engine(torch, wd, gdir, synth):
         raise RuntimeError("findmotif --engine windows printed no "
                            "extraction or scan summary")
     rows, scan_s = int(m_scan.group(1)), float(m_scan.group(2))
+    if fused["fused"] != PEAKS:
+        raise RuntimeError(f"{fused['fused']} fused launches for {PEAKS} "
+                           f"regions: want one per region")
     log(f"window engine on cuda: {rows} window rows ({rows // 2} "
         f"windows/strand), extraction {float(m_ext.group(2)):.2f}s, "
         f"scan {scan_s:.3f}s, wall {wall:.2f}s, {n_hits} hits (p < 1e-4), "
@@ -572,54 +841,69 @@ def phase_window_engine(torch, wd, gdir, synth):
     log(f"window engine on cpu: wall {wall_cpu:.2f}s; cuda TSV "
         f"byte-identical to cpu TSV")
 
+    hist.reset_counts()
     _, wall_runs, (tsv_runs, n_runs_hits) = run("runs", "cuda")
     pd.testing.assert_frame_equal(_sorted_report(tsv_runs),
                                   _sorted_report(tsv_cuda), check_exact=True)
-    log(f"run engine on cuda: {n_runs_hits} hits, wall {wall_runs:.2f}s; "
-        f"report equal to the window engine's when sorted")
+    log(f"run engine on cuda: {n_runs_hits} hits, wall {wall_runs:.2f}s, "
+        f"histogram kernel launches {hist.COUNTS['kernel']}; report equal "
+        f"to the window engine's when sorted")
     return launches["scan_packed"]["kernel"]
 
 
+def _kernel_line(name, source, replaces, launches, cases, headline):
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_back_to_back",
+            "device_ms")
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches,
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        bound_by="bytes", case=headline["label"],
+        **{k: headline.get(k) for k in keys},
+    )
+
+
 def main() -> int:
-    sys.modules["jax"] = None  # the port must run without JAX
+    # the port must run without JAX and without the reference package
+    sys.modules["jax"] = sys.modules["grafimo_tpu"] = None
     import torch
 
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch sees no CUDA device; nothing "
                          "to test\n")
         return 1
+    cases_json = None
+    if sys.argv[1:2] == ["--cases-json"]:
+        cases_json = sys.argv[2]
     sys.path.insert(0, HERE)
     t_start = time.perf_counter()
     phase_environment(torch)
     phase_build()
-    cases = phase_kernel_vs_plain(torch)
+    hist_cases = phase_kernel_vs_plain(torch)
     phase_cuda_vs_cpu(torch)
     with tempfile.TemporaryDirectory(prefix="grafimo_smoke_") as wd:
         launches, gdir, synth = phase_main_path(torch, wd)
+        peaked = phase_peaked_hist(torch, wd)
         scan_cases = phase_scan_packed_vs_plain(torch)
-        cases += phase_hist_variants(torch)
+        fused_cases = phase_fused_vs_plain(torch)
+        hist_cases += phase_hist_variants(torch)
         scan_launches = phase_window_engine(torch, wd, gdir, synth)
-    main_case, scan_case = cases[0], scan_cases[0]
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": [{
-        "name": "exact_hist",
-        "route": "cuda",
-        "source": "grafimo_tpu_torch/csrc/hist.cu",
-        "replaces": "grafimo_tpu/ops/pallas_hist.py:90",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-    }, {
-        "name": "scan_packed",
-        "route": "cuda",
-        "source": "grafimo_tpu_torch/csrc/scan_packed.cu",
-        "replaces": "grafimo_tpu/ops/pallas_scan.py:74",
-        "launches": scan_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in scan_cases),
-        "ms": scan_case["ms"],
-        "plain_ms": scan_case["plain_ms"],
-    }]}))
+    if cases_json:
+        with open(cases_json, "w") as f:
+            json.dump({"exact_hist": [peaked] + hist_cases,
+                       "scan_packed": scan_cases,
+                       "scan_packed_fused": fused_cases}, f, indent=1)
+    # each kernel at the shape its engine's main path gives it: the run
+    # engine's plane of real CTCF scores, the window engine's region batch
+    print(json.dumps({"kernels": [
+        _kernel_line("exact_hist", "grafimo_tpu_torch/csrc/hist.cu",
+                     "grafimo_tpu/ops/pallas_hist.py:90", launches,
+                     [peaked] + hist_cases, peaked),
+        _kernel_line("scan_packed", "grafimo_tpu_torch/csrc/scan_packed.cu",
+                     "grafimo_tpu/ops/pallas_scan.py:74", scan_launches,
+                     scan_cases + fused_cases, fused_cases[0]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

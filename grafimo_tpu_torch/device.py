@@ -13,7 +13,7 @@ CPU tests, and the smoke's cross-device check).
 
 import torch
 
-from grafimo_tpu.errors import DependencyError, GrafimoError
+from grafimo_tpu_torch.errors import DependencyError, GrafimoError
 
 DEVICES = ("cuda", "cpu")
 
@@ -50,11 +50,11 @@ def resolve_device(name: str) -> torch.device:
 
 
 def check_native() -> str:
-    """Build and load the shared C++ engine (``grafimo_tpu/native``),
-    raising when it is unavailable.  Without it ``batch_runs`` silently
-    takes the python batcher, which is orders of magnitude slower at
-    chromosome scale."""
-    from grafimo_tpu.native import _lib
+    """Build and load the port's copy of the C++ engine
+    (:mod:`grafimo_tpu_torch.native`), raising when it is unavailable.
+    Without it ``batch_runs`` silently takes the python batcher, which is
+    orders of magnitude slower at chromosome scale."""
+    from grafimo_tpu_torch.native import _lib
 
     return str(_lib())
 

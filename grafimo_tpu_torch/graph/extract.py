@@ -2,8 +2,9 @@
 
 Copied from ``grafimo_tpu/graph/extract.py:24-132``: the original is
 jax-free, but it imports ``grafimo_tpu.windows``, which imports jax
-through ``grafimo_tpu/ops/__init__.py``.  The enumeration engine
-(``grafimo_tpu.graph.enumerate``) and the graph are imported as they are.
+through ``grafimo_tpu/ops/__init__.py``.  The enumeration engine and the
+graph are the port's copies (:mod:`grafimo_tpu_torch.graph.enumerate`,
+:mod:`grafimo_tpu_torch.graph.sitegraph`).
 ``tests/test_torch_scan.py`` pins the copy to the original.
 
 One change: :func:`extract_region` hands the enumerator a view of the
@@ -24,8 +25,8 @@ from typing import Iterable, List, Optional
 
 import numpy as np
 
-from grafimo_tpu.graph.enumerate import Window, enumerate_region_windows
-from grafimo_tpu.graph.sitegraph import SiteGraph
+from grafimo_tpu_torch.graph.enumerate import Window, enumerate_region_windows
+from grafimo_tpu_torch.graph.sitegraph import SiteGraph
 from grafimo_tpu_torch.windows import WindowBatch
 
 _RC_TABLE = str.maketrans("ACGTN", "TGCAN")

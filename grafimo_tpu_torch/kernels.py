@@ -3,14 +3,17 @@
 The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``,
 one ``nvcc -c`` per source, all started together, and linked into one
 shared library with a plain C interface, named by a hash of the
-sources and flags (as ``grafimo_tpu/native/__init__.py:29-51`` names its
-C++ library) and cached under ``grafimo_tpu_torch/_build/``.  The build
+sources, the header they share and the flags (as
+``grafimo_tpu/native/__init__.py:29-51`` names its C++ library) and
+cached under ``grafimo_tpu_torch/_build/``.  The build
 runs at first use, never at import, so the CPU tests import every module
 on a host without ``nvcc``.  The library is bound with ``ctypes``:
 pointers and the stream cross as ``c_void_p``.
 """
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,6 +25,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
     os.path.join(_HERE, "csrc", name) for name in ("hist.cu", "scan_packed.cu")
 ]
+HEADERS = [os.path.join(_HERE, "csrc", "bins.cuh")]
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,7 +57,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -115,18 +119,39 @@ def load() -> ctypes.CDLL:
             c = ctypes
             lib.grafimo_exact_hist.argtypes = [
                 c.c_void_p, c.c_longlong, c.c_int, c.c_int, c.c_void_p,
-                c.c_void_p,
+                c.c_int, c.c_void_p,
             ]
             lib.grafimo_exact_hist.restype = c.c_int
+            lib.grafimo_max_hist_size.argtypes = [c.c_int]
+            lib.grafimo_max_hist_size.restype = c.c_int
             lib.grafimo_scan_packed.argtypes = [
                 c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_longlong,
-                c.c_int, c.c_int, c.c_void_p, c.c_void_p,
+                c.c_int, c.c_int, c.c_void_p, c.c_void_p, c.c_int, c.c_int,
+                c.c_void_p,
             ]
             lib.grafimo_scan_packed.restype = c.c_int
             lib.grafimo_cuda_error_string.argtypes = [c.c_int]
             lib.grafimo_cuda_error_string.restype = c.c_char_p
             _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def max_hist_size(dev: int) -> int:
+    """The most bins a column of the counting kernels holds on device
+    ``dev`` (one cluster of blocks' shared memory)."""
+    with on_device(dev):
+        return load().grafimo_max_hist_size(dev)
+
+
+def on_device(dev: int):
+    """A context in which CUDA device ``dev`` is current: none when it
+    already is, so a launch on the current device switches nothing."""
+    import torch
+
+    if torch.cuda.current_device() == dev:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -13,7 +13,7 @@ from typing import List, Sequence
 
 import numpy as np
 
-from grafimo_tpu.utils.constants import N_CODE
+from grafimo_tpu_torch.utils.constants import N_CODE
 
 # byte -> code lookup (case-insensitive); default N_CODE
 _LUT = np.full(256, N_CODE, dtype=np.uint8)

@@ -26,17 +26,22 @@ def reset_counts() -> None:
     COUNTS["plain"] = 0
 
 
-def exact_hist_reference(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
-    """Plain PyTorch version: one ``bincount`` over ``value * M + column``
-    of the in-range entries, on the tensor's own device."""
-    COUNTS["plain"] += 1
+def bincount(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
+    """``(hist_size, M) int64`` counts of ``scores (..., M)`` in
+    ``[0, hist_size)``: one ``bincount`` over ``value * M + column`` of the
+    in-range entries, on the tensor's own device."""
     m = scores.shape[-1]
     flat = scores.reshape(-1, m)
     keep = (flat >= 0) & (flat < hist_size)
     cols = torch.arange(m, device=scores.device).expand_as(flat)
     idx = flat.to(torch.int64)[keep] * m + cols[keep]
-    counts = torch.bincount(idx, minlength=hist_size * m)
-    return counts.view(hist_size, m).to(torch.int32)
+    return torch.bincount(idx, minlength=hist_size * m).view(hist_size, m)
+
+
+def exact_hist_reference(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
+    """Plain PyTorch version (:func:`bincount`, as int32)."""
+    COUNTS["plain"] += 1
+    return bincount(scores, hist_size).to(torch.int32)
 
 
 def exact_hist(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
@@ -54,19 +59,20 @@ def exact_hist(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
         raise ValueError(
             f"exact_hist: need 1..65535 columns, got shape {tuple(scores.shape)}"
         )
-    if not 1 <= hist_size < 2**31 // 4:
-        raise ValueError(f"exact_hist: hist_size {hist_size} out of range")
+    lib = kernels.load()
+    dev = scores.device.index
+    if not 1 <= hist_size <= kernels.max_hist_size(dev):
+        raise ValueError(f"exact_hist: hist_size {hist_size} out of range "
+                         f"(1..{kernels.max_hist_size(dev)})")
     m = scores.shape[-1]
     n = scores.numel() // m
-    out = torch.zeros((hist_size, m), dtype=torch.int32, device=scores.device)
-    if n == 0:
-        return out
-    lib = kernels.load()
-    with torch.cuda.device(scores.device):
-        stream = torch.cuda.current_stream(scores.device).cuda_stream
+    out = torch.empty((hist_size, m), dtype=torch.int32, device=scores.device)
+    with kernels.on_device(dev):
         code = lib.grafimo_exact_hist(
-            scores.data_ptr(), n, m, hist_size, out.data_ptr(), stream
+            scores.data_ptr(), n, m, hist_size, out.data_ptr(), dev,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(lib, code, "exact_hist launch")
-    COUNTS["kernel"] += 1
+    if n:
+        COUNTS["kernel"] += 1
     return out

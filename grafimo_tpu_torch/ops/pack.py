@@ -15,7 +15,7 @@ Layout: ``packed (B, ceil(k/4)) uint8``, base ``i`` of window ``b`` is
 
 import numpy as np
 
-from grafimo_tpu.utils.constants import N_CODE, PAD_CODE
+from grafimo_tpu_torch.utils.constants import N_CODE, PAD_CODE
 
 FLAG_CLEAN = 0
 FLAG_N = 1

@@ -33,7 +33,7 @@ The module also carries copies of the jax-free host helpers of
 import numpy as np
 import torch
 
-from grafimo_tpu.utils.constants import RANGE
+from grafimo_tpu_torch.utils.constants import RANGE
 from grafimo_tpu_torch.ops.hist import exact_hist
 
 # --------------------------------------------------------------------------

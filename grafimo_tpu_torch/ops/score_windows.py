@@ -4,12 +4,14 @@ kernels.
 Counterpart of ``grafimo_tpu/ops/score_jax.py``.  The reference scores a
 ``(B, k)`` code batch with a one-hot ``(B, 4k) @ (4k, M)`` float32
 contraction; the port packs the codes on the host (``ops/pack.py``), moves
-the packed rows and flags to the device in one copy and scores them with
-:func:`~grafimo_tpu_torch.ops.scan_packed.score_packed` -- integer LUT
-sums, the CUDA kernel on a card -- then counts them with
-:func:`~grafimo_tpu_torch.ops.hist.exact_hist`.  Every entry point goes
-through that packed path, so on a card every window scoring launches both
-kernels.
+the packed rows and flags to the device in one copy and scores and counts
+them in one launch of
+:func:`~grafimo_tpu_torch.ops.scan_packed.score_packed_hist` -- integer
+LUT sums and a clamp-then-count into an int64 histogram, the CUDA kernel
+on a card.  :func:`score_and_accumulate` adds into the caller's running
+histogram, so a region batch costs one copy in, one launch and the copy
+of its scores out; the entry points that return ``(scores, hist int32)``
+count into a fresh histogram.
 
 PWMs cross as the reference's ``(4k, M)`` float32 layout
 (:func:`pwms_to_flat`, position-major, row ``4*i + code``) and become the
@@ -21,15 +23,14 @@ histogram in :func:`score_hist_core` and the packed path, but scores
 ``min_score`` in :func:`score_batch` (``score_jax.py:114-115``).  Scores
 are clamped into ``[0, hist_size - 1]`` before counting
 (``score_jax.py:76-77``), so a score past ``RANGE * k`` lands in the last
-bin, as in the reference.
+bin, as in the reference; the kernel clamps as it counts.
 """
 
 import numpy as np
 import torch
 
-from grafimo_tpu_torch.ops.hist import exact_hist
 from grafimo_tpu_torch.ops.pack import FLAG_N, FLAG_PAD, pack_codes
-from grafimo_tpu_torch.ops.scan_packed import score_packed
+from grafimo_tpu_torch.ops.scan_packed import score_packed, score_packed_hist
 from grafimo_tpu_torch.ops.score_runs import (  # noqa: F401  (re-exported)
     hist_size_for_width,
     pwm_lut_from_kernel,
@@ -77,23 +78,30 @@ def pwm_lut_from_flat(pwm_flat: np.ndarray, device) -> torch.Tensor:
 # scoring
 
 
-def _histogram(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
-    """The reference's clamp-then-count (``score_jax.py:75-77``): negative
-    scores drop, scores past the last bin count in it."""
-    return exact_hist(scores.clamp(max=hist_size - 1), hist_size)
-
-
 def _score_packed_host(packed: np.ndarray, flags: np.ndarray,
-                       lut: torch.Tensor, min_scores) -> torch.Tensor:
+                       lut: torch.Tensor, min_scores,
+                       hist=None) -> torch.Tensor:
     """Score host-packed rows on the LUT's device, after one host->device
-    copy of the rows and their flags together."""
+    copy of the rows and their flags together; with ``hist``, count them
+    into it in the same launch."""
     b, w8 = packed.shape
     buf = torch.from_numpy(np.concatenate([packed.reshape(-1), flags]))
     buf = buf.to(lut.device)
-    return score_packed(
-        buf[: b * w8].view(b, w8), buf[b * w8 :], lut,
-        torch.as_tensor(min_scores, dtype=torch.int32, device=lut.device),
-    )
+    args = (buf[: b * w8].view(b, w8), buf[b * w8 :], lut,
+            torch.as_tensor(min_scores, dtype=torch.int32, device=lut.device))
+    if hist is None:
+        return score_packed(*args)
+    return score_packed_hist(*args, hist)
+
+
+def score_and_accumulate(codes, lut: torch.Tensor, min_scores,
+                         hist: torch.Tensor) -> torch.Tensor:
+    """Score ``(B, k)`` host codes against the ``(k, 4, M)`` LUT on its
+    device and add the clamped scores into ``hist (hist_size, M) int64``
+    there, in place; returns the ``(B, M) int32`` scores.  Row semantics
+    as :func:`score_hist_core`."""
+    packed, flags = pack_codes(codes)
+    return _score_packed_host(packed, flags, lut, min_scores, hist)
 
 
 def score_hist_core(codes, lut: torch.Tensor, min_scores, hist_size: int):
@@ -105,9 +113,10 @@ def score_hist_core(codes, lut: torch.Tensor, min_scores, hist_size: int):
     Returns ``scores (B, M) int32`` and ``hist (hist_size, M) int32`` on
     the LUT's device.
     """
-    packed, flags = pack_codes(codes)
-    scores = _score_packed_host(packed, flags, lut, min_scores)
-    return scores, _histogram(scores, hist_size)
+    hist = torch.zeros((hist_size, lut.shape[2]), dtype=torch.int64,
+                       device=lut.device)
+    scores = score_and_accumulate(codes, lut, min_scores, hist)
+    return scores, hist.to(torch.int32)
 
 
 def score_and_histogram(codes, lut: torch.Tensor, min_scores, hist_size: int):
@@ -135,9 +144,11 @@ def score_and_histogram_packed(
     if k != lut.shape[0]:
         raise ValueError(f"k = {k} but the LUT is for width {lut.shape[0]}")
     dev = lut.device
-    scores = score_packed(
+    hist = torch.zeros((hist_size, lut.shape[2]), dtype=torch.int64,
+                       device=dev)
+    scores = score_packed_hist(
         torch.as_tensor(packed, dtype=torch.uint8, device=dev),
         torch.as_tensor(flags, dtype=torch.uint8, device=dev), lut,
-        torch.as_tensor(min_scores, dtype=torch.int32, device=dev),
+        torch.as_tensor(min_scores, dtype=torch.int32, device=dev), hist,
     )
-    return scores, _histogram(scores, hist_size)
+    return scores, hist.to(torch.int32)

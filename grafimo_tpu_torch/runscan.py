@@ -3,8 +3,8 @@
 Counterpart of ``grafimo_tpu/runscan.py``.  End-to-end flow per (width,
 regions), as in the reference:
 
-1. the host builds and batches runs (``batch_runs``; the shared C++
-   batcher of ``grafimo_tpu/native``) -- no window materialisation;
+1. the host builds and batches runs (``batch_runs``; the C++ batcher
+   of :mod:`grafimo_tpu_torch.native`) -- no window materialisation;
 2. :func:`scan_batches` streams the batches to one torch device, where
    ``ops/score_runs.py`` scores every stride-1 window on both strands,
    histograms the integer scores (the CUDA kernel on a card) and returns
@@ -30,7 +30,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from grafimo_tpu.graph.runs import (
+from grafimo_tpu_torch.graph.runs import (
     Run,
     _anchor_bounds,
     _anchor_window_fallback,
@@ -42,10 +42,10 @@ from grafimo_tpu.graph.runs import (
     reconstruct_hits_batch,
     region_runs,
 )
-from grafimo_tpu.graph.sitegraph import SiteGraph
-from grafimo_tpu.models.motif import Motif
-from grafimo_tpu.models.pvalue import PvalueLookup
-from grafimo_tpu.report.results import apply_report_filters, build_results_df
+from grafimo_tpu_torch.graph.sitegraph import SiteGraph
+from grafimo_tpu_torch.models.motif import Motif
+from grafimo_tpu_torch.models.pvalue import PvalueLookup
+from grafimo_tpu_torch.report.results import apply_report_filters, build_results_df
 from grafimo_tpu_torch.ops.qvalue import qvalues_from_histogram
 from grafimo_tpu_torch.ops.score_runs import (
     bytes_to_words,
@@ -386,7 +386,7 @@ def load_batches(path: str) -> Tuple[List[DeviceBatch], List[str]]:
 def _native_batcher():
     """The C++ batch pipeline entry, or None when unavailable."""
     try:
-        from grafimo_tpu.native import batch_regions_native
+        from grafimo_tpu_torch.native import batch_regions_native
 
         return batch_regions_native
     except Exception:

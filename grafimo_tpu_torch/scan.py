@@ -3,9 +3,10 @@ window batches, assign p/q-values, assemble the results table.
 
 Counterpart of ``grafimo_tpu/scan.py:34-147``, with an explicit
 ``device``.  For each chunk of a batch: ``pack_codes`` on the host, one
-host->device copy of the packed rows and flags, the packed-window scoring
-kernel, the exact histogram kernel, the scores back to the host
-(:func:`grafimo_tpu_torch.ops.score_windows.score_and_histogram`).
+host->device copy of the packed rows and flags, one launch of the fused
+kernel that scores them and adds them to the motif's int64 histogram on
+the device, the scores back to the host
+(:func:`grafimo_tpu_torch.ops.score_windows.score_and_accumulate`).
 Everything after that, from ``PvalueLookup`` to the p-value-sorted
 DataFrame, is the reference's host code line for line, so rows reach the
 non-stable sort in the reference's order.
@@ -19,14 +20,14 @@ import numpy as np
 import pandas as pd
 import torch
 
-from grafimo_tpu.models.motif import Motif
-from grafimo_tpu.models.pvalue import PvalueLookup
+from grafimo_tpu_torch.models.motif import Motif
+from grafimo_tpu_torch.models.pvalue import PvalueLookup
 from grafimo_tpu_torch.ops.qvalue import qvalues_from_histogram
 from grafimo_tpu_torch.ops.score_windows import (
     hist_size_for_width,
     pwm_lut_from_flat,
     pwms_to_flat,
-    score_and_histogram,
+    score_and_accumulate,
 )
 from grafimo_tpu_torch.windows import WindowBatch
 
@@ -65,8 +66,9 @@ def compute_results(
     min_scores = torch.tensor([motif.min_score], dtype=torch.int32,
                               device=device)
     hist_size = hist_size_for_width(motif.width)
-    # summed on the device, read back once after the last chunk
-    hist_dev = torch.zeros(hist_size, dtype=torch.int64, device=device)
+    # summed on the device by the scoring launches, read back once after
+    # the last chunk
+    hist_dev = torch.zeros((hist_size, 1), dtype=torch.int64, device=device)
 
     kept_batches = []
     kept_scores = []
@@ -81,11 +83,10 @@ def compute_results(
         for lo in range(0, len(batch), CHUNK):
             hi = min(lo + CHUNK, len(batch))
             t0 = time.perf_counter()
-            scores, hist = score_and_histogram(
-                batch.codes[lo:hi], lut, min_scores, hist_size
+            scores = score_and_accumulate(
+                batch.codes[lo:hi], lut, min_scores, hist_dev
             )
             parts.append(scores[:, 0].cpu().numpy().astype(np.int64))
-            hist_dev += hist[:, 0]
             stats.scoring_time += time.perf_counter() - t0
         stats.seqs_scanned += len(batch)
         stats.nucs_scanned += len(batch) * motif.width
@@ -98,7 +99,7 @@ def compute_results(
             "graphs and searching on the right chromosomes?"
         )
 
-    hist_total = hist_dev.cpu().numpy()
+    hist_total = hist_dev[:, 0].cpu().numpy()
     scores = np.concatenate(kept_scores)
     lookup = PvalueLookup(motif.pval_table)
     pvalues = lookup.pvalues(scores)

@@ -14,16 +14,16 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from grafimo_tpu.config import BuildVG, Findmotif
-from grafimo_tpu.errors import GrafimoError, GraphError
-from grafimo_tpu.graph.sitegraph import SiteGraph, build_graph
-from grafimo_tpu.io.bed import read_bed_regions
-from grafimo_tpu.io.fasta import fasta_chrom_names, read_fasta
-from grafimo_tpu.io.vcf import read_vcf_records
-from grafimo_tpu.models.motif import MotifSet
-from grafimo_tpu.models.parse import load_motifs
-from grafimo_tpu.report.writer import print_results, write_results
-from grafimo_tpu.utils.constants import DEFAULT_OUTDIR
+from grafimo_tpu_torch.config import BuildVG, Findmotif
+from grafimo_tpu_torch.errors import GrafimoError, GraphError
+from grafimo_tpu_torch.graph.sitegraph import SiteGraph, build_graph
+from grafimo_tpu_torch.io.bed import read_bed_regions
+from grafimo_tpu_torch.io.fasta import fasta_chrom_names, read_fasta
+from grafimo_tpu_torch.io.vcf import read_vcf_records
+from grafimo_tpu_torch.models.motif import MotifSet
+from grafimo_tpu_torch.models.parse import load_motifs
+from grafimo_tpu_torch.report.writer import print_results, write_results
+from grafimo_tpu_torch.utils.constants import DEFAULT_OUTDIR
 from grafimo_tpu_torch.device import check_deps
 
 GVT_SUFFIX = ".gvt.npz"
@@ -151,7 +151,7 @@ def load_graph_file(path: str) -> SiteGraph:
     """Load a ``.gvt.npz``, ``.vg``, ``.xg`` or ``.gfa`` graph, with a
     ``.gbwt`` sidecar where present (``grafimo_tpu/workflows.py:180-210``)."""
     if path.endswith(".xg"):
-        from grafimo_tpu.graph.xg import xg_to_sitegraph
+        from grafimo_tpu_torch.graph.xg import xg_to_sitegraph
 
         gbwt = path[:-3] + ".gbwt"
         try:
@@ -163,11 +163,11 @@ def load_graph_file(path: str) -> SiteGraph:
     for ext, loader_name in ((".gfa", "gfa"), (".vg", "vgproto")):
         if path.endswith(ext):
             if loader_name == "gfa":
-                from grafimo_tpu.graph.gfa import (
+                from grafimo_tpu_torch.graph.gfa import (
                     gfa_to_sitegraph as loader,
                 )
             else:
-                from grafimo_tpu.graph.vgproto import (
+                from grafimo_tpu_torch.graph.vgproto import (
                     vg_to_sitegraph as loader,
                 )
             gbwt = path[: -len(ext)] + ".gbwt"

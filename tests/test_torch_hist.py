@@ -120,7 +120,8 @@ def test_exact_hist_rejects_other_devices():
 )
 def test_kernel_matches_plain_on_card(m, hist_size):
     """On a card: the CUDA kernel bit-identical to the plain version,
-    shared-memory bins and (70002 bins) the global-memory path."""
+    bins in one block's shared memory, in column groups (M = 16, 40) and
+    (70002 bins) split over a thread-block cluster."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     s = _scores(50 + m, (64, 1000, m), hist_size)

@@ -2,7 +2,11 @@
 CPU against the reference's: the copied host half array for array,
 ``scan_batches`` histograms and hits, and ``compute_results_runs``
 DataFrames.  Tolerance 0: integers, and float64 values computed by the
-same numpy code from the same integers."""
+same numpy code from the same integers.  Each side gets graphs and motifs
+built by its own package's loaders from the same files and numpy arrays."""
+
+import importlib
+import types
 
 import numpy as np
 import pandas as pd
@@ -13,20 +17,34 @@ import grafimo_tpu.ops.qvalue as ref_qvalue
 import grafimo_tpu.runscan as ref_rs
 import grafimo_tpu_torch.ops.qvalue as port_qvalue
 import grafimo_tpu_torch.runscan as port_rs
-from grafimo_tpu.graph.sitegraph import build_graph
-from grafimo_tpu.io.fasta import read_fasta
-from grafimo_tpu.io.vcf import VcfRecord, iter_vcf_records
-from grafimo_tpu.models.background import load_bg
-from grafimo_tpu.models.motif import Motif
-from grafimo_tpu.models.parse import _prepare_counts_motif, load_motifs
-from grafimo_tpu.models.process import process_motif
-from grafimo_tpu.models.pvalue import PvalueLookup
 from grafimo_tpu.utils.constants import UNIF
 
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 BATCH_FIELDS = ("packed", "nbits", "vbits", "gstart", "patches", "splice")
+
+
+def _host(pkg):
+    """The host layers of ``pkg``: the reference's, or the port's copies."""
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    return types.SimpleNamespace(
+        build_graph=mod("graph.sitegraph").build_graph,
+        read_fasta=mod("io.fasta").read_fasta,
+        VcfRecord=mod("io.vcf").VcfRecord,
+        iter_vcf_records=mod("io.vcf").iter_vcf_records,
+        load_bg=mod("models.background").load_bg,
+        Motif=mod("models.motif").Motif,
+        load_motifs=mod("models.parse").load_motifs,
+        prepare_counts_motif=mod("models.parse")._prepare_counts_motif,
+        process_motif=mod("models.process").process_motif,
+        PvalueLookup=mod("models.pvalue").PvalueLookup,
+    )
+
+
+REF, PORT = _host("grafimo_tpu"), _host("grafimo_tpu_torch")
 
 
 @pytest.fixture(autouse=True)
@@ -36,13 +54,13 @@ def _single_device(monkeypatch):
     monkeypatch.setenv("GRAFIMO_TPU_SINGLE_DEVICE", "1")
 
 
-def _toy_graph(input_dir):
-    seqs = read_fasta(str(input_dir / "test.fa"))
-    records = list(iter_vcf_records(str(input_dir / "test.vcf.gz"), "x"))
-    return build_graph("x", seqs["x"], records)
+def _toy_graph(input_dir, h=PORT):
+    seqs = h.read_fasta(str(input_dir / "test.fa"))
+    records = list(h.iter_vcf_records(str(input_dir / "test.vcf.gz"), "x"))
+    return h.build_graph("x", seqs["x"], records)
 
 
-def _random_graph(seed, length=900):
+def _random_graph(seed, length=900, h=PORT):
     """SNPs, deletions and insertions over a random sequence with a few
     N bases, three diploid samples."""
     rng = np.random.default_rng(seed)
@@ -58,28 +76,27 @@ def _random_graph(seed, length=900):
         if "N" not in span:
             if kind < 0.15:  # deletion of 1..4 bases
                 ln = int(rng.integers(1, 5))
-                records.append(VcfRecord("r", pos, seq[pos - 1 : pos + ln],
-                                         [seq[pos - 1]], gt))
+                records.append(h.VcfRecord("r", pos, seq[pos - 1 : pos + ln],
+                                           [seq[pos - 1]], gt))
             elif kind < 0.3:  # insertion of 1..4 bases
                 ins = "".join(rng.choice(list("ACGT"), int(rng.integers(1, 5))))
-                records.append(
-                    VcfRecord("r", pos, seq[pos - 1], [seq[pos - 1] + ins], gt)
-                )
+                records.append(h.VcfRecord("r", pos, seq[pos - 1],
+                                           [seq[pos - 1] + ins], gt))
             else:
                 alt = rng.choice([c for c in "ACGT" if c != seq[pos - 1]])
-                records.append(VcfRecord("r", pos, seq[pos - 1], [alt], gt))
+                records.append(h.VcfRecord("r", pos, seq[pos - 1], [alt], gt))
         pos += int(rng.integers(7, 16))
-    return build_graph("r", seq, records)
+    return h.build_graph("r", seq, records)
 
 
-def _motif(seed, k):
+def _motif(seed, k, h=PORT):
     counts = np.random.default_rng(seed).integers(1, 50, (4, k)).astype(
         np.float64
     )
-    return process_motif(
-        _prepare_counts_motif(
-            Motif(motif_id="P", motif_name="P", counts=counts, width=k),
-            load_bg(UNIF, False),
+    return h.process_motif(
+        h.prepare_counts_motif(
+            h.Motif(motif_id="P", motif_name="P", counts=counts, width=k),
+            h.load_bg(UNIF, False),
             0.1,
         )
     )
@@ -90,7 +107,7 @@ def _scan_inputs(motifs, threshold):
     for mt in motifs:
         mats += [mt.score_matrix, port_rs.reverse_complement_pwm(mt.score_matrix)]
         mins += [mt.min_score] * 2
-    lookups = [PvalueLookup(mt.pval_table) for mt in motifs]
+    lookups = [PORT.PvalueLookup(mt.pval_table) for mt in motifs]
     cuts = np.array(
         [lk.score_cutoff(threshold) for lk in lookups for _ in (0, 1)],
         np.int32,
@@ -100,10 +117,12 @@ def _scan_inputs(motifs, threshold):
             cuts, k, 1000 * k + 1)
 
 
-def _assert_batches_equal(got, want):
+def _assert_batches_equal(got, want, graphs):
+    """``graphs``: the (port, reference) graph the batches were cut from."""
     assert len(got) == len(want)
     for x, y in zip(got, want):
-        assert x.R == y.R and x.graph is y.graph
+        assert x.R == y.R
+        assert (x.graph, y.graph) in ((None, None), graphs)
         for f in BATCH_FIELDS:
             a, b = getattr(x, f), getattr(y, f)
             assert (a is None) == (b is None), f
@@ -115,17 +134,17 @@ def _assert_batches_equal(got, want):
         ]
 
 
-def _both_batches(graph, display, regions, k, resident):
+def _both_batches(graphs, display, regions, k, resident):
     # one batcher thread: with several, the native engine's threads claim
     # regions from a shared counter (graphite.cpp:799-812), so the row
     # order of a multi-region call follows scheduling and two calls can
     # differ row for row; scan results do not depend on row order
     got = port_rs.batch_runs(
-        port_rs.build_region_runs(graph, display, regions, k), k,
+        port_rs.build_region_runs(graphs[0], display, regions, k), k,
         resident=resident, threads=1,
     )
     want = ref_rs.batch_runs(
-        ref_rs.build_region_runs(graph, display, regions, k), k,
+        ref_rs.build_region_runs(graphs[1], display, regions, k), k,
         resident=resident, threads=1,
     )
     return got, want
@@ -135,15 +154,16 @@ def _both_batches(graph, display, regions, k, resident):
 @pytest.mark.parametrize("which", ["toy", "random"])
 def test_batch_runs_matches_reference(input_dir, which, resident):
     if which == "toy":
-        graph, display, regions, k = _toy_graph(input_dir), "x", [(0, 50)], 19
+        graphs = (_toy_graph(input_dir), _toy_graph(input_dir, REF))
+        display, regions, k = "x", [(0, 50)], 19
     else:
-        graph = _random_graph(3)
-        display, regions, k = "r", [(0, 400), (350, graph.length)], 11
-    got, want = _both_batches(graph, display, regions, k, resident)
+        graphs = (_random_graph(3), _random_graph(3, h=REF))
+        display, regions, k = "r", [(0, 400), (350, graphs[0].length)], 11
+    got, want = _both_batches(graphs, display, regions, k, resident)
     kinds = {(b.gstart is None, b.patches is None, b.splice is None)
              for b in got}
     assert len(kinds) >= (3 if which == "random" and resident else 1)
-    _assert_batches_equal(got, want)
+    _assert_batches_equal(got, want, graphs)
     assert port_rs.batch_wire_stats(got, k) == ref_rs.batch_wire_stats(
         want, k
     )
@@ -155,7 +175,7 @@ def test_batch_runs_matches_reference(input_dir, which, resident):
 def test_resident_genome_matches_reference():
     # separate graph objects: both functions cache on the graph
     got = port_rs._resident_genome(_random_graph(4))
-    want = ref_rs._resident_genome(_random_graph(4))
+    want = ref_rs._resident_genome(_random_graph(4, h=REF))
     assert want[1] is not None  # the graph has N bases
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
@@ -163,13 +183,16 @@ def test_resident_genome_matches_reference():
 
 
 def test_qvalues_from_histogram_matches_reference(input_dir):
-    ctcf = load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1, False)[0]
-    lookup = PvalueLookup(ctcf.pval_table)
+    lookups = [
+        h.PvalueLookup(h.load_motifs(str(input_dir / "MA0139.1.meme"), UNIF,
+                                     0.1, False)[0].pval_table)
+        for h in (PORT, REF)
+    ]
     rng = np.random.default_rng(6)
     hist = np.zeros(19001, np.int64)
     hist[rng.integers(0, 19001, 300)] = rng.integers(1, 1000, 300)
-    got = port_qvalue.qvalues_from_histogram(hist, lookup.pvalues)
-    assert got == ref_qvalue.qvalues_from_histogram(hist, lookup.pvalues)
+    got = port_qvalue.qvalues_from_histogram(hist, lookups[0].pvalues)
+    assert got == ref_qvalue.qvalues_from_histogram(hist, lookups[1].pvalues)
     p = rng.random(50)
     np.testing.assert_array_equal(
         port_qvalue.fdr_bh(p), ref_qvalue.fdr_bh(p)
@@ -231,30 +254,32 @@ def _mix_batches(mod, graph, rng, k):
     return out
 
 
-def _mix_graph():
+def _mix_graph(h=PORT):
     rng = np.random.default_rng(8)
     seq = list(rng.choice(list("ACGT"), 1500))
     for p in rng.choice(1500, 12, replace=False):
         seq[p] = "N"
-    return build_graph("m", "".join(seq), [])
+    return h.build_graph("m", "".join(seq), [])
 
 
 @pytest.mark.parametrize("case", ["toy", "random", "random_tiny_cap", "mix"])
 def test_scan_batches_matches_reference(input_dir, monkeypatch, case):
     if case == "toy":
-        graph, k = _toy_graph(input_dir), 19
-        motifs = load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1,
-                             False)
-        got_b, want_b = _both_batches(graph, "x", [(0, 50)], k, True)
+        graphs, k = (_toy_graph(input_dir), _toy_graph(input_dir, REF)), 19
+        motifs = PORT.load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1,
+                                  False)
+        got_b, want_b = _both_batches(graphs, "x", [(0, 50)], k, True)
     elif case == "mix":
-        graph, k = _mix_graph(), 11
+        k = 11
         motifs = [_motif(5, k)]
-        got_b = _mix_batches(port_rs, graph, np.random.default_rng(9), k)
-        want_b = _mix_batches(ref_rs, graph, np.random.default_rng(9), k)
+        got_b = _mix_batches(port_rs, _mix_graph(), np.random.default_rng(9),
+                             k)
+        want_b = _mix_batches(ref_rs, _mix_graph(REF),
+                              np.random.default_rng(9), k)
     else:
-        graph, k = _random_graph(5), 11
+        graphs, k = (_random_graph(5), _random_graph(5, h=REF)), 11
         motifs = [_motif(5, k), _motif(6, k)]
-        got_b, want_b = _both_batches(graph, "r", [(0, graph.length)], k,
+        got_b, want_b = _both_batches(graphs, "r", [(0, graphs[0].length)], k,
                                       True)
     if case == "random_tiny_cap":
         # slicing must not change results (the reference pins this at 64)
@@ -288,24 +313,29 @@ def _toy_cases():
     ]
 
 
-@pytest.mark.parametrize("case,kwargs", _toy_cases())
-def test_compute_results_runs_matches_reference(input_dir, case, kwargs):
-    ctcf = load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1, False)[0]
-    motifs = [ctcf]
+def _case_inputs(input_dir, case, h):
+    """(motifs, graph, display, regions) of a compute_results case, built
+    by ``h``'s loaders."""
+    motifs = h.load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1, False)
     if case == "multi_motif":
-        m2 = load_motifs(str(input_dir / "MA0139.1.jaspar"), UNIF, 0.1,
-                         False)[0]
+        m2 = h.load_motifs(str(input_dir / "MA0139.1.jaspar"), UNIF, 0.1,
+                           False)[0]
         m2.motif_id = "MA0139.1-jaspar"
         motifs.append(m2)
     if case == "n_bases":
         seq = "ACGT" * 20 + "N" + "ACGT" * 20
-        graph, display, regions = build_graph("n", seq, []), "n", [(0, len(seq))]
-    else:
-        graph, display, regions = _toy_graph(input_dir), "x", [(0, 50)]
+        return motifs, h.build_graph("n", seq, []), "n", [(0, len(seq))]
+    return motifs, _toy_graph(input_dir, h), "x", [(0, 50)]
+
+
+@pytest.mark.parametrize("case,kwargs", _toy_cases())
+def test_compute_results_runs_matches_reference(input_dir, case, kwargs):
+    motifs, graph, display, regions = _case_inputs(input_dir, case, PORT)
     got = port_rs.compute_results_runs(
         motifs, port_rs.build_region_runs(graph, display, regions, 19), CPU,
         **kwargs,
     )
+    motifs, graph, display, regions = _case_inputs(input_dir, case, REF)
     want = ref_rs.compute_results_runs(
         motifs, ref_rs.build_region_runs(graph, display, regions, 19),
         **kwargs,
@@ -318,7 +348,8 @@ def test_compute_results_runs_matches_reference(input_dir, case, kwargs):
 def test_score_fault_raises_mismatch(input_dir, monkeypatch):
     """A host/device score disagreement raises after one scan: the
     reference's rescan-once retry is not ported."""
-    ctcf = load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1, False)[0]
+    ctcf = PORT.load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1,
+                            False)[0]
     real_score, real_scan = port_rs._score_windows_host, port_rs.scan_batches
     scans = []
 

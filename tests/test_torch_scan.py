@@ -2,7 +2,8 @@
 copied host modules (``ops/encode.py``, ``ops/pack.py``, ``windows.py``,
 ``graph/extract.py``) array for array, and ``scan.compute_results``
 DataFrames on the chr22 fixture windows, exactly, and against the golden
-``scoring_results.tsv``."""
+``scoring_results.tsv``.  Each side gets graphs and motifs built by its own
+package's loaders from the same files and numpy arrays."""
 
 import numpy as np
 import pandas as pd
@@ -19,10 +20,14 @@ import grafimo_tpu_torch.ops.encode as port_encode
 import grafimo_tpu_torch.ops.pack as port_pack
 import grafimo_tpu_torch.scan as port_scan
 import grafimo_tpu_torch.windows as port_windows
-from grafimo_tpu.graph.sitegraph import build_graph
-from grafimo_tpu.io.fasta import read_fasta
-from grafimo_tpu.io.vcf import VcfRecord, iter_vcf_records
-from grafimo_tpu.models.parse import load_motifs
+import grafimo_tpu.graph.sitegraph as ref_sitegraph
+import grafimo_tpu.io.fasta as ref_fasta
+import grafimo_tpu.io.vcf as ref_vcf
+import grafimo_tpu.models.parse as ref_parse
+import grafimo_tpu_torch.graph.sitegraph as port_sitegraph
+import grafimo_tpu_torch.io.fasta as port_fasta
+import grafimo_tpu_torch.io.vcf as port_vcf
+import grafimo_tpu_torch.models.parse as port_parse
 from grafimo_tpu.utils.constants import N_CODE, PAD_CODE, UNIF
 from grafimo_tpu_torch.ops import hist, scan_packed
 
@@ -35,14 +40,28 @@ BATCH_FIELDS = ("width", "seqnames", "seqs", "chroms", "starts", "stops",
 
 @pytest.fixture(scope="module")
 def ctcf(input_dir):
-    return load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1, False)[0]
+    """CTCF through the port's loader."""
+    return port_parse.load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1,
+                                  False)[0]
 
 
 @pytest.fixture(scope="module")
-def toy_graph(input_dir):
-    seqs = read_fasta(str(input_dir / "test.fa"))
-    records = list(iter_vcf_records(str(input_dir / "test.vcf.gz"), "x"))
-    return build_graph("x", seqs["x"], records)
+def ref_ctcf(input_dir):
+    return ref_parse.load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1,
+                                 False)[0]
+
+
+def _toy_graph(input_dir, fasta, vcf, sitegraph):
+    seqs = fasta.read_fasta(str(input_dir / "test.fa"))
+    records = list(vcf.iter_vcf_records(str(input_dir / "test.vcf.gz"), "x"))
+    return sitegraph.build_graph("x", seqs["x"], records)
+
+
+@pytest.fixture(scope="module")
+def toy_graphs(input_dir):
+    """The toy graph, built by the port's loaders and by the reference's."""
+    return (_toy_graph(input_dir, port_fasta, port_vcf, port_sitegraph),
+            _toy_graph(input_dir, ref_fasta, ref_vcf, ref_sitegraph))
 
 
 def _same_batch(got, want):
@@ -115,11 +134,11 @@ def test_windows_copy_matches_reference(input_dir):
     [(19, (0, 45), True), (5, (3, 30), True), (19, (0, 45), False),
      (8, (10, 20), False)],
 )
-def test_extract_copy_matches_reference(toy_graph, tmp_path, width, region,
+def test_extract_copy_matches_reference(toy_graphs, tmp_path, width, region,
                                         both):
-    got = port_extract.extract_region(toy_graph, *region, width,
+    got = port_extract.extract_region(toy_graphs[0], *region, width,
                                       chrom_display="x", both_strands=both)
-    want = ref_extract.extract_region(toy_graph, *region, width,
+    want = ref_extract.extract_region(toy_graphs[1], *region, width,
                                       chrom_display="x", both_strands=both)
     assert len(got) == len(want) > 0
     _same_batch(got, want)
@@ -130,7 +149,7 @@ def test_extract_copy_matches_reference(toy_graph, tmp_path, width, region,
     assert port_extract.revcomp("ACGTN") == ref_extract.revcomp("ACGTN")
 
 
-def _dense_graph(seed, length=700):
+def _dense_graph(seed, length=700, vcf=port_vcf, sitegraph=port_sitegraph):
     """A variant every 2-8 bp: SNPs, multi-allelic SNPs, deletions of up
     to 12 bases and insertions, over a random sequence, four diploid
     samples."""
@@ -142,19 +161,20 @@ def _dense_graph(seed, length=700):
         kind = rng.random()
         if kind < 0.15:
             ln = int(rng.integers(1, 13))
-            records.append(VcfRecord("d", pos, seq[pos - 1 : pos + ln],
-                                     [seq[pos - 1]], [min(g, 1) for g in gt]))
+            records.append(vcf.VcfRecord("d", pos, seq[pos - 1 : pos + ln],
+                                         [seq[pos - 1]],
+                                         [min(g, 1) for g in gt]))
             pos += ln
         elif kind < 0.3:
             ins = "".join(rng.choice(list("ACGT"), int(rng.integers(1, 6))))
-            records.append(VcfRecord("d", pos, seq[pos - 1],
-                                     [seq[pos - 1] + ins],
-                                     [min(g, 1) for g in gt]))
+            records.append(vcf.VcfRecord("d", pos, seq[pos - 1],
+                                         [seq[pos - 1] + ins],
+                                         [min(g, 1) for g in gt]))
         else:
             alts = [c for c in "ACGT" if c != seq[pos - 1]][:2]
-            records.append(VcfRecord("d", pos, seq[pos - 1], alts, gt))
+            records.append(vcf.VcfRecord("d", pos, seq[pos - 1], alts, gt))
         pos += int(rng.integers(2, 9))
-    return build_graph("d", seq, records)
+    return sitegraph.build_graph("d", seq, records)
 
 
 @pytest.mark.parametrize("k", [5, 19])
@@ -163,11 +183,12 @@ def test_extract_region_cut_matches_reference(k):
     instead of the chromosome's; every region start, inside deletions
     and insertions included, gives the reference's window stream."""
     graph = _dense_graph(k)
+    ref_graph = _dense_graph(k, vcf=ref_vcf, sitegraph=ref_sitegraph)
     cut = 0
     for start in range(0, len(graph.seq) - 30, 3):
         got = port_extract.extract_region(graph, start, start + 30, k,
                                           chrom_display="d")
-        want = ref_extract.extract_region(graph, start, start + 30, k,
+        want = ref_extract.extract_region(ref_graph, start, start + 30, k,
                                           chrom_display="d")
         _same_batch(got, want)
         cut += port_extract._region_view(graph, start) is not graph
@@ -188,10 +209,10 @@ def test_extract_region_cut_matches_reference(k):
     ],
     ids=["default", "all_rows", "no_reverse", "qval_t", "no_qvalue"],
 )
-def test_compute_results_matches_reference(ctcf, input_dir, kwargs):
+def test_compute_results_matches_reference(ctcf, ref_ctcf, input_dir, kwargs):
     want_stats, got_stats = ref_scan.ScanStats(), port_scan.ScanStats()
     want = ref_scan.compute_results(
-        ctcf, ref_windows.iter_windows_tsv_dir(str(input_dir), 19),
+        ref_ctcf, ref_windows.iter_windows_tsv_dir(str(input_dir), 19),
         stats=want_stats, **kwargs,
     )
     hist.reset_counts()
@@ -204,9 +225,11 @@ def test_compute_results_matches_reference(ctcf, input_dir, kwargs):
     pd.testing.assert_frame_equal(got, want, check_exact=True)
     assert (got_stats.seqs_scanned, got_stats.nucs_scanned) == (
         want_stats.seqs_scanned, want_stats.nucs_scanned)
-    # on the CPU both scoring steps took their plain versions
-    assert scan_packed.COUNTS["plain"] >= 1 and hist.COUNTS["plain"] >= 1
-    assert scan_packed.COUNTS["kernel"] == hist.COUNTS["kernel"] == 0
+    # on the CPU the fused score-and-count took its plain version, and no
+    # separate histogram ran
+    assert scan_packed.COUNTS["plain"] >= 1
+    assert scan_packed.COUNTS["kernel"] == scan_packed.COUNTS["fused"] == 0
+    assert hist.COUNTS == {"kernel": 0, "plain": 0}
 
 
 def test_compute_results_chunks_like_one_pass(ctcf, input_dir, monkeypatch):

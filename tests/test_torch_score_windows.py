@@ -77,7 +77,7 @@ def test_score_packed_matches_pallas(ctcf):
     sp.reset_counts()
     got = sp.score_packed(torch.from_numpy(packed), torch.from_numpy(flags),
                           _lut(mats), torch.from_numpy(mins))
-    assert sp.COUNTS == {"kernel": 0, "plain": 1}
+    assert sp.COUNTS == {"kernel": 0, "plain": 1, "fused": 0}
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want[-1] == -1).all() and (want[5] == ctcf.min_score).all()
@@ -174,6 +174,93 @@ def test_pad_rows_score_differently_by_entry_point(ctcf):
     assert int(hist.sum()) == 1
 
 
+# (label, k, M, highest LUT entry); "clip": column 0 at 1020 everywhere
+FUSED_CASES = [
+    ("ctcf_width", 19, 1, 1001),
+    ("clip", 19, 2, 1021),
+    ("short_clip", 8, 3, 1021),
+]
+
+
+def _fused_inputs(label, k, m, high):
+    rng = np.random.default_rng(sum(map(ord, label)) + 7)
+    mats = _mats(rng, k, m, high)
+    if high > 1001:
+        mats[0][:, :] = 1020  # every clean row of column 0 scores 1020*k
+    # two calls of different sizes, each with N and PAD rows
+    return mats, _mins(mats), [_codes(rng, b, k) for b in (TILE_B, 700)]
+
+
+@pytest.mark.parametrize("label,k,m,high", FUSED_CASES)
+def test_fused_plain_accumulates_like_reference(label, k, m, high):
+    """The fused entry's plain version over two calls into one int64
+    running histogram: scores equal to the TPU kernel in interpret mode,
+    the histogram to the sum of the reference's two XLA histograms."""
+    mats, mins, calls = _fused_inputs(label, k, m, high)
+    hs = ref.hist_size_for_width(k)
+    hist = torch.zeros((hs, m), dtype=torch.int64)
+    want_hist = np.zeros((hs, m), np.int64)
+    sp.reset_counts()
+    for packed, flags in map(pack_codes, calls):
+        got = sp.score_packed_hist(
+            torch.from_numpy(packed), torch.from_numpy(flags), _lut(mats),
+            torch.from_numpy(mins), hist,
+        )
+        pallas = np.asarray(pallas_score_packed(
+            np.pad(packed, ((0, -len(packed) % TILE_B), (0, 0))),
+            np.pad(flags, (0, -len(flags) % TILE_B), constant_values=2),
+            pwm_shift_major(mats, k), mins, interpret=True,
+        ))[: len(packed)]
+        want_s, want_h = _ref_sh(
+            ref.score_and_histogram_packed, packed, flags,
+            ref.pwms_to_flat(mats), mins, k, hs,
+        )
+        np.testing.assert_array_equal(got.numpy(), pallas)
+        np.testing.assert_array_equal(got.numpy(), want_s)
+        want_hist += want_h
+    assert sp.COUNTS == {"kernel": 0, "plain": 2, "fused": 0}
+    assert hist.dtype == torch.int64
+    np.testing.assert_array_equal(hist.numpy(), want_hist)
+    assert (got.numpy() == -1).any() and (flags == 1).any()
+    if high > 1001:
+        assert want_hist[hs - 1, 0] > 0 and want_s.max() > RANGE * k
+
+
+@pytest.mark.parametrize("label,k,m,high", FUSED_CASES)
+def test_score_and_accumulate_matches_reference(label, k, m, high):
+    """The window engine's entry: codes in, scores out, the running
+    histogram summed across calls as the reference's int32 histograms."""
+    mats, mins, calls = _fused_inputs(label, k, m, high)
+    hs = ref.hist_size_for_width(k)
+    hist = torch.zeros((hs, m), dtype=torch.int64)
+    want_hist = np.zeros((hs, m), np.int64)
+    for codes in calls:
+        want_s, want_h = _ref_sh(
+            ref.score_and_histogram, codes, ref.pwms_to_flat(mats), mins, hs
+        )
+        got = port.score_and_accumulate(codes, _lut(mats), mins, hist)
+        np.testing.assert_array_equal(got.numpy(), want_s)
+        want_hist += want_h
+    np.testing.assert_array_equal(hist.numpy(), want_hist)
+
+
+def test_score_packed_hist_checks_its_inputs():
+    lut = torch.zeros((19, 4, 2), dtype=torch.int32)
+    packed = torch.zeros((6, 5), dtype=torch.uint8)
+    flags = torch.zeros(6, dtype=torch.uint8)
+    mins = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"hist must be \(hist_size, 2\)"):
+        sp.score_packed_hist(packed, flags, lut, mins,
+                             torch.zeros((9, 3), dtype=torch.int64))
+    with pytest.raises(ValueError, match="hist on meta"):
+        sp.score_packed_hist(packed, flags, lut, mins,
+                             torch.zeros((9, 2), dtype=torch.int64,
+                                         device="meta"))
+    hist = torch.zeros((9, 2), dtype=torch.int64)
+    sp.score_packed_hist(packed, flags, lut, mins, hist)
+    assert hist[0].tolist() == [6, 6] and int(hist.sum()) == 12
+
+
 def test_pwm_lut_from_flat_round_trip():
     rng = np.random.default_rng(5)
     mats = _mats(rng, 9, 3, high=1021)
@@ -252,7 +339,7 @@ def test_kernel_matches_plain_on_card(b, k, m, high):
     got = sp.score_packed(*args)
     want = sp.score_packed_reference(*args)
     torch.cuda.synchronize()
-    assert sp.COUNTS == {"kernel": 1, "plain": 1}
+    assert sp.COUNTS == {"kernel": 1, "plain": 1, "fused": 0}
     assert torch.equal(got, want)
 
 

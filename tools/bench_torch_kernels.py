@@ -1,0 +1,179 @@
+"""Time the port's CUDA kernels on one NVIDIA card, for an A/B of two
+trees of the repository in one call.
+
+    python3 tools/bench_torch_kernels.py --root DIR --out FILE.json
+
+imports ``grafimo_tpu_torch`` from the tree at ``DIR``, builds its
+kernels, and times them on seeded inputs at the shapes the two engines
+give them:
+
+- ``exact_hist`` on the run engine's (2048, 2030, 2) plane, random and
+  of CTCF (MA0139.1) scores over uniform random sequence (the peaked
+  case), on M = 16 and 40 columns and on k = 70, and at the window
+  engine's region batch (2,653, 1);
+- ``score_packed`` at 2^18 rows and at the region batch;
+- one region of the window engine's device work: in a tree without the
+  fused entry ``score_packed_hist``, what the window engine ran before it
+  (scores, clamp, a fresh histogram, the int64 add), else the fused
+  launch.
+
+Per case: the median of 10 single calls and the mean of 100 calls issued
+back to back (CUDA events), and the device time per call of everything
+the call puts on the card (``torch.profiler``: kernels and memsets).
+Run it for each tree in turns (parent, change, change, parent) to compare
+two trees on one card.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+SEED = 0
+WINDOW_BATCH = 2653  # window rows of one 500 bp peak (both strands)
+
+
+def _ctcf(root):
+    """CTCF's integer score matrix and min score, read by the tree's own
+    motif loader (older trees of the port used the reference's)."""
+    motif = os.path.join(root, "tests", "data", "input", "MA0139.1.meme")
+    try:
+        from grafimo_tpu_torch.models.parse import load_motifs
+        from grafimo_tpu_torch.utils.constants import UNIF
+    except ImportError:
+        from grafimo_tpu.models.parse import load_motifs
+        from grafimo_tpu.utils.constants import UNIF
+    m = load_motifs(motif, UNIF, 0.1, False)[0]
+    return m.score_matrix, m.min_score
+
+
+def _timed(torch, fn):
+    fn()
+    torch.cuda.synchronize()
+    single = []
+    for _ in range(10):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        single.append(a.elapsed_time(b))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(100):
+        fn()
+    b.record()
+    b.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(
+        getattr(e, "self_device_time_total", None)
+        or getattr(e, "self_cuda_time_total", 0)
+        for e in prof.key_averages()
+    )
+    return {"ms": sorted(single)[5], "ms_back_to_back": a.elapsed_time(b) / 100,
+            "device_ms": device_us / 20 / 1e3}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.modules["jax"] = None
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.stderr.write("bench_torch_kernels: no CUDA device\n")
+        return 1
+    from grafimo_tpu_torch import kernels
+    from grafimo_tpu_torch.ops import hist as th
+    from grafimo_tpu_torch.ops import scan_packed as sp
+    from grafimo_tpu_torch.ops.pack import pack_codes
+    from grafimo_tpu_torch.ops.score_runs import (
+        _window_scores,
+        pwm_lut_from_kernel,
+        pwms_to_conv_kernel,
+        reverse_complement_pwm,
+    )
+
+    kernels.load()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    out = {"root": root, "card": smi.splitlines()[0], "cases": {}}
+
+    def case(name, fn):
+        out["cases"][name] = _timed(torch, fn)
+        print(name, out["cases"][name], flush=True)
+
+    mat, min_score = _ctcf(root)
+    lut2 = pwm_lut_from_kernel(
+        pwms_to_conv_kernel([mat, reverse_complement_pwm(mat)]), dev)
+    lut1 = pwm_lut_from_kernel(pwms_to_conv_kernel([mat]), dev)
+    mins1 = torch.tensor([min_score], dtype=torch.int32, device=dev)
+
+    def plane(k, m, lut=None):
+        codes = torch.from_numpy(rng.integers(0, 4, (2048, 2048))).to(dev)
+        if lut is None:
+            lut = torch.from_numpy(
+                rng.integers(0, 1001, (k, 4, m)).astype(np.int32)).to(dev)
+        return (_window_scores(codes, lut, k) + 1).contiguous()
+
+    for name, s, hs in [
+        ("hist main path random k=19 M=2", plane(19, 2), 19002),
+        ("hist main path CTCF (peaked) k=19 M=2", plane(19, 2, lut2), 19002),
+        ("hist M=16 k=19", plane(19, 16), 19002),
+        ("hist M=40 k=19", plane(19, 40), 19002),
+        ("hist k=70 M=2", plane(70, 2), 70002),
+    ]:
+        case(name, lambda: th.exact_hist(s, hs))
+        del s
+        torch.cuda.empty_cache()
+
+    def region(b):
+        codes = rng.integers(0, 4, (b, 19)).astype(np.uint8)
+        codes[rng.random(b) < 0.01, 3] = 4
+        packed, flags = pack_codes(codes)
+        return (torch.from_numpy(packed).to(dev),
+                torch.from_numpy(flags).to(dev))
+
+    packed, flags = region(WINDOW_BATCH)
+    s = sp.score_packed(packed, flags, lut1, mins1).clamp(max=19000)
+    case(f"hist window shape ({WINDOW_BATCH}, 1)",
+         lambda: th.exact_hist(s, 19001))
+    big = region(1 << 18)
+    case("score_packed B=2^18 k=19 M=1",
+         lambda: sp.score_packed(*big, lut1, mins1))
+    case(f"score_packed B={WINDOW_BATCH} k=19 M=1",
+         lambda: sp.score_packed(packed, flags, lut1, mins1))
+    hist_dev = torch.zeros((19001, 1), dtype=torch.int64, device=dev)
+    if hasattr(sp, "score_packed_hist"):
+        def one_region():
+            sp.score_packed_hist(packed, flags, lut1, mins1, hist_dev)
+    else:
+        def one_region():
+            scores = sp.score_packed(packed, flags, lut1, mins1)
+            h = th.exact_hist(scores.clamp(max=19000), 19001)
+            hist_dev[:, 0] += h[:, 0]
+    case(f"window engine region B={WINDOW_BATCH} (device work)", one_region)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
