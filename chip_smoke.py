@@ -40,7 +40,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    where it must launch the fused kernel once per region, and neither a
    plain version nor a separate histogram, then on the CPU, whose report
    must be byte-identical, then the run engine on the card, whose report
-   must hold the same rows.
+   must hold the same rows;
+9. the run engine split over a device list at phase 5's size:
+   ``scan_batches`` on one device and on two shards of cuda:0 (and on
+   every card when there are several), identical histograms and hits,
+   then ``findmotif`` on two shards, whose TSV and GFF3 must be phase 5's
+   byte for byte;
+10. ``parallel/pipeline.py``'s grid functions on a (4, 2) grid over
+    cuda:0 at the run engine's shape (B = 2048 and 2045 rows, R = 2048,
+    CTCF k = 19, M = 2), bit for bit against the single-device kinds and
+    ``score_hist_core``;
+11. two processes on cuda:0 (gloo over localhost, each a fresh
+    interpreter with jax and ``grafimo_tpu`` blocked): the peak set and a
+    one-region BED (rank 1 scans nothing); rank 0's reports must be the
+    one-process ones byte for byte;
+12. ``--profile``: the trace exists and names the histogram kernel; the
+    report is unchanged.
 
 Each kernel case prints its time as the median of 10 single launches and
 as the mean of 100 back-to-back launches (CUDA events), its device time
@@ -851,12 +866,337 @@ def phase_window_engine(torch, wd, gdir, synth):
     return launches["scan_packed"]["kernel"]
 
 
-def _kernel_line(name, source, replaces, launches, cases, headline):
+def _ctcf_scan_inputs(threshold=1e-4):
+    """The run engine's scan inputs for CTCF, as ``compute_results_runs``
+    builds them: forward and reverse-complement columns, minimum scores,
+    the p < ``threshold`` score cutoffs and the histogram size."""
+    import numpy as np
+
+    from grafimo_tpu_torch.models.parse import load_motifs
+    from grafimo_tpu_torch.models.pvalue import PvalueLookup
+    from grafimo_tpu_torch.ops.score_runs import (
+        hist_size_for_width,
+        pwms_to_conv_kernel,
+        reverse_complement_pwm,
+    )
+    from grafimo_tpu_torch.utils.constants import UNIF
+
+    ctcf = load_motifs(MOTIF, UNIF, 0.1, False)[0]
+    kernel = pwms_to_conv_kernel(
+        [ctcf.score_matrix, reverse_complement_pwm(ctcf.score_matrix)])
+    mins = np.array([ctcf.min_score] * 2, np.int32)
+    cut = PvalueLookup(ctcf.pval_table).score_cutoff(threshold)
+    return (kernel, mins, np.array([cut] * 2, np.int32), ctcf.width,
+            hist_size_for_width(ctcf.width))
+
+
+def _entry_findmotif(argv, devices):
+    """``workflows.findmotif`` on an explicit device list -- the library
+    entry the CLI calls -- with the CLI's parsing, stdout captured."""
+    from grafimo_tpu_torch.cli import args_to_workflow, get_parser
+    from grafimo_tpu_torch.workflows import findmotif
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        findmotif(args_to_workflow(get_parser().parse_args(argv)), devices)
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def _same_report(a, b, what):
+    for name in ("grafimo_out.tsv", "grafimo_out.gff"):
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            if fa.read() != fb.read():
+                raise RuntimeError(f"{what}: {name} differs")
+
+
+def phase_multi_device(torch, wd, gdir, synth):
+    """Phase 9: the run engine's scan split over a device list at phase
+    5's size -- the chromosome's own batches through ``scan_batches`` on
+    one device and on two shards of the same card (and on every card when
+    there are more), then the whole ``findmotif`` on two shards, whose
+    report must be phase 5's byte for byte."""
+    import numpy as np
+
+    import grafimo_tpu_torch.runscan as rb
+    from grafimo_tpu_torch.ops import hist
+    from grafimo_tpu_torch.workflows import load_graph_file
+
+    graph = load_graph_file(os.path.join(gdir, "21.gvt.npz"))
+    params = _ctcf_scan_inputs()
+    k = params[3]
+    batches = rb.batch_runs(
+        rb.build_region_runs(graph, "21", [(0, synth["length"])], k), k)
+    one = [torch.device("cuda", 0)]
+    configs = {"1 shard": one, "2 shards on cuda:0": one * 2}
+    if torch.cuda.device_count() > 1:
+        configs[f"{torch.cuda.device_count()} cards"] = [
+            torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    order = ["1 shard", "2 shards on cuda:0", "2 shards on cuda:0",
+             "1 shard"] + list(configs)[2:]
+    seconds = {name: [] for name in configs}
+    results = {}
+    launches = {}
+    for name in order:
+        hist.reset_counts()
+        res = rb.scan_batches(batches, *params, configs[name])
+        seconds[name].append(res.scoring_time)
+        if hist.COUNTS["kernel"] <= 0 or hist.COUNTS["plain"]:
+            raise RuntimeError(f"10 Mbp scan on {name} did not run on the "
+                               f"kernel: {dict(hist.COUNTS)}")
+        launches[name] = hist.COUNTS["kernel"]
+        results.setdefault(name, res)
+    want = results["1 shard"]
+    for name, res in results.items():
+        if not np.array_equal(res.hists, want.hists):
+            raise RuntimeError(f"10 Mbp scan on {name}: histograms differ")
+        if sorted(res.hits) != sorted(want.hits):
+            raise RuntimeError(f"10 Mbp scan on {name}: hits differ")
+    log(f"{SMOKE_MBP} Mbp scan_batches, {len(batches)} batches, "
+        f"{int(want.hists.sum())} window-strands, {len(want.hits)} hits: "
+        + "; ".join(f"{name}: scan {', '.join(f'{t:.3f}' for t in ts)} s, "
+                    f"{launches[name]} hist.cu launches"
+                    for name, ts in seconds.items())
+        + "; histograms and hits identical")
+    out = os.path.join(wd, "out_whole_2shards")
+    hist.reset_counts()
+    text, wall = _entry_findmotif([
+        "findmotif", "-d", gdir, "-b", os.path.join(wd, "whole.bed"),
+        "-m", MOTIF, "-t", "1e-4", "-o", out, "--verbose"], one * 2)
+    entry_launches = dict(hist.COUNTS)
+    if entry_launches["kernel"] <= 0 or entry_launches["plain"]:
+        raise RuntimeError(f"2-shard findmotif did not run on the kernel: "
+                           f"{entry_launches}")
+    _same_report(out, os.path.join(wd, "out_whole"), "2-shard findmotif")
+    m = re.search(r"run scan: .*\(([\d.]+)s\)", text)
+    log(f"whole-chromosome findmotif on 2 shards of cuda:0: scan "
+        f"{m.group(1) if m else 'n/a'} s, wall {wall:.2f}s, hist.cu "
+        f"launches {entry_launches['kernel']}; TSV and GFF3 byte-identical "
+        f"to the 1-device run")
+    return entry_launches["kernel"]
+
+
+def phase_grid(torch):
+    """Phase 10: ``parallel/pipeline.py``'s grid functions on a (4, 2)
+    grid over cuda:0 at the run engine's shape, bit for bit against the
+    single-device kinds and ``score_hist_core``."""
+    import numpy as np
+
+    from grafimo_tpu_torch.ops import hist, scan_packed
+    from grafimo_tpu_torch.ops import score_runs as sr
+    from grafimo_tpu_torch.ops import score_windows as sw
+    from grafimo_tpu_torch.parallel import pipeline as pp
+
+    dev = torch.device("cuda", 0)
+    grid = pp.make_mesh(4, 2, devices=[dev] * 8)
+    kernel, mins, cuts, k, hs = _ctcf_scan_inputs()
+    r = 2048
+    noff = r - k + 1
+    rng = np.random.default_rng(SEED + 6)
+    genome = rng.integers(0, 4, 4_000_000).astype(np.uint8)
+    g4 = sr.bytes_to_words(np.concatenate(
+        [sr.pack_run_seqs(genome[None, :])[0], np.zeros(r, np.uint8)]))
+    gn = sr.bytes_to_words(np.concatenate(
+        [sr.pack_bits((rng.random(len(genome)) < 0.001)[None, :])[0],
+         np.zeros(r, np.uint8)]))
+    lut = sr.pwm_lut_from_kernel(kernel, dev)
+    t_mins, t_cuts = (torch.as_tensor(x, device=dev) for x in (mins, cuts))
+    launches = {"exact_hist": 0, "scan_packed": 0}
+
+    def counted(fn, *args):
+        hist.reset_counts()
+        scan_packed.reset_counts()
+        out = fn(*args)
+        launches["exact_hist"] += hist.COUNTS["kernel"]
+        launches["scan_packed"] += scan_packed.COUNTS["kernel"]
+        if hist.COUNTS["plain"] or scan_packed.COUNTS["plain"]:
+            raise RuntimeError("a grid function ran a plain version on the "
+                               "card")
+        return out
+
+    def same(label, got, one_hist, one_hit):
+        hist_g, hits_g, counts_g = got
+        want_hits = torch.nonzero(one_hit).cpu()
+        if not (torch.equal(hist_g, one_hist.cpu().long())
+                and torch.equal(hits_g, want_hits)
+                and torch.equal(counts_g, torch.bincount(want_hits[:, 2],
+                                                         minlength=2))):
+            raise RuntimeError(f"grid {label} != single device")
+        return len(hits_g)
+
+    for b in (2048, 2045):  # 2045: no multiple of the 4 data shards
+        packed = sr.pack_run_seqs(rng.integers(0, 4, (b, r)))
+        nbits = sr.pack_bits(rng.random((b, r)) < 0.001)
+        vbits = sr.pack_bits(rng.random((b, noff)) < 0.95)
+        got = counted(pp.sharded_run_scan(grid, k, hs), packed, nbits, vbits,
+                      kernel, mins, cuts)
+        t = [torch.from_numpy(x).to(dev) for x in (packed, nbits, vbits)]
+        n_run = same(f"run scan B={b}", got,
+                     *sr.scan_runs_device(*t, lut, t_mins, t_cuts, k, hs))
+        gstart = rng.integers(0, len(genome) - r, b).astype(np.int32)
+        got = counted(pp.sharded_resident_scan(grid, r, k, hs, with_n=True),
+                      g4, gn, gstart, vbits, kernel, mins, cuts)
+        g4d, gnd = sr.genome_planes_to_device(g4, gn, dev)
+        n_res = same(f"resident scan B={b}", got, *sr.scan_runs_resident(
+            g4d, gnd, torch.from_numpy(gstart).to(dev), t[2], lut, t_mins,
+            t_cuts, r, k, hs))
+        codes = rng.integers(0, 4, (b * 128, k)).astype(np.uint8)
+        codes[rng.random(len(codes)) < 0.01, 3] = 4  # N windows
+        codes[-3:] = 5  # padding rows
+        pwm_flat = sw.pwms_to_flat([kernel[:, :, c].T for c in range(2)])
+        scores, hist_w, counts_w = counted(
+            pp.sharded_scan_step(grid, hs), codes, pwm_flat, mins, cuts)
+        one_s, one_h = sw.score_hist_core(
+            codes, sw.pwm_lut_from_flat(pwm_flat, dev), mins, hs)
+        one_s = one_s.cpu()
+        want_counts = ((one_s >= torch.from_numpy(cuts)) & (one_s >= 0)).sum(0)
+        if not (torch.equal(scores, one_s)
+                and torch.equal(hist_w, one_h.cpu().long())
+                and torch.equal(counts_w, want_counts)):
+            raise RuntimeError(f"grid scan step B={len(codes)} != "
+                               "score_hist_core")
+        log(f"(4, 2) grid on cuda:0, B={b}: sharded_run_scan ({n_run} hits), "
+            f"sharded_resident_scan ({n_res} hits), sharded_scan_step "
+            f"({len(codes)} windows) bit-identical to one device")
+    log(f"grid launches: {launches}")
+    return launches
+
+
+RANK_PROG = BLOCK_JAX + (
+    "import json\n"
+    "from grafimo_tpu_torch.cli import main\n"
+    "from grafimo_tpu_torch.ops import hist\n"
+    "rc = main(sys.argv[1:])\n"
+    "print(json.dumps({'hist_launches': hist.COUNTS['kernel'], "
+    "'hist_plain': hist.COUNTS['plain']}))\n"
+    "sys.exit(rc)\n"
+)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _two_ranks(argv_of, timeout=600):
+    """The port's CLI as ranks 0 and 1 of a gloo group on localhost, both
+    on cuda:0, each a fresh interpreter with jax and grafimo_tpu
+    blocked; fails unless both exit 0 in time.  Returns each rank's
+    stdout."""
+    port = _free_port()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", RANK_PROG, *argv_of(rank),
+             "--coordinator", f"localhost:{port}", "--num-processes", "2",
+             "--process-id", str(rank)],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        for rank in range(2)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {rank} exited {p.returncode}:\n"
+                               f"{out[-3000:]}")
+    return outs
+
+
+def phase_two_processes(torch, wd, gdir):
+    """Phase 11: the run engine as two processes on cuda:0 -- the peak set
+    (its report must be phase 8's one-process run-engine report byte for
+    byte) and phase 5's one-region pocket BED, which leaves rank 1 with
+    nothing to scan (its report must be phase 5's)."""
+    cases = [
+        ("peak set", os.path.join(wd, "peaks.bed"),
+         os.path.join(wd, "out_peaks_runs_cuda")),
+        ("one region", os.path.join(wd, "pocket.bed"),
+         os.path.join(wd, "out_pocket_cuda")),
+    ]
+    launches = 0
+    for label, bed, want in cases:
+        tag = label.replace(" ", "_")
+        t0 = time.perf_counter()
+        outs = _two_ranks(lambda rank: [
+            "findmotif", "-d", gdir, "-b", bed, "-m", MOTIF, "-t", "1e-4",
+            "-o", os.path.join(wd, f"out_2proc_{tag}_{rank}"), "--verbose",
+            "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        _same_report(os.path.join(wd, f"out_2proc_{tag}_0"), want,
+                     f"2 processes, {label}")
+        if os.path.exists(os.path.join(wd, f"out_2proc_{tag}_1")):
+            raise RuntimeError(f"2 processes, {label}: rank 1 wrote a report")
+        parts = []
+        for rank, out in enumerate(outs):
+            counts = json.loads(out.strip().splitlines()[-1])
+            if counts["hist_plain"]:
+                raise RuntimeError(f"rank {rank} ran the plain histogram")
+            launches += counts["hist_launches"]
+            scan = re.search(r"run scan: .*\(([\d.]+)s\)", out)
+            coll = re.search(r"cluster: rank \d/2, histogram all-reduce "
+                             r"([\d.]+)s, report-row gather ([\d.]+)s", out)
+            share = re.search(r"scanning (\d+/\d+) regions", out)
+            if not (scan and coll and share):
+                raise RuntimeError(f"rank {rank} printed no scan, cluster "
+                                   f"or shard line:\n{out[-2000:]}")
+            parts.append(
+                f"rank {rank}: {share.group(1)} regions, scan "
+                f"{scan.group(1)} s, all-reduce {coll.group(1)} s, gather "
+                f"{coll.group(2)} s, {counts['hist_launches']} hist.cu "
+                f"launches")
+        log(f"2 processes on cuda:0, {label}: " + "; ".join(parts)
+            + f"; wall {wall:.2f}s (both ranks); rank 0's TSV and GFF3 "
+            f"byte-identical to the 1-process run")
+    return launches
+
+
+def phase_profile(torch, wd, gdir):
+    """Phase 12: ``--profile DIR`` on the peak set's run engine: the
+    trace exists and names the histogram kernel, and the report is phase
+    8's."""
+    from grafimo_tpu_torch.ops import hist
+
+    pdir = os.path.join(wd, "profile")
+    out = os.path.join(wd, "out_profiled")
+    hist.reset_counts()
+    _, wall = _findmotif([
+        "findmotif", "-d", gdir, "-b", os.path.join(wd, "peaks.bed"),
+        "-m", MOTIF, "-t", "1e-4", "-o", out, "--device", "cuda",
+        "--profile", pdir])
+    launches = hist.COUNTS["kernel"]
+    trace = os.path.join(pdir, "grafimo_rank0.pt.trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events
+               if "exact_hist_kernel" in str(e.get("name", ""))]
+    if not kernels:
+        raise RuntimeError(f"{trace} names no exact_hist_kernel")
+    _same_report(out, os.path.join(wd, "out_peaks_runs_cuda"),
+                 "--profile run")
+    log(f"--profile: {trace} ({os.path.getsize(trace)} bytes, "
+        f"{len(events)} events, {len(kernels)} of exact_hist_kernel, "
+        f"{launches} launches counted), wall {wall:.2f}s; report "
+        f"byte-identical to the run without it")
+    return launches
+
+
+def _kernel_line(name, source, replaces, launches, cases, headline, by_path):
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_back_to_back",
             "device_ms")
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=launches,
+        launches=launches, launches_by_path=by_path,
         max_abs_err=max(c["max_abs_err"] for c in cases),
         bound_by="bytes", case=headline["label"],
         **{k: headline.get(k) for k in keys},
@@ -888,6 +1228,10 @@ def main() -> int:
         fused_cases = phase_fused_vs_plain(torch)
         hist_cases += phase_hist_variants(torch)
         scan_launches = phase_window_engine(torch, wd, gdir, synth)
+        shard_launches = phase_multi_device(torch, wd, gdir, synth)
+        grid_launches = phase_grid(torch)
+        rank_launches = phase_two_processes(torch, wd, gdir)
+        profile_launches = phase_profile(torch, wd, gdir)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     if cases_json:
         with open(cases_json, "w") as f:
@@ -895,14 +1239,27 @@ def main() -> int:
                        "scan_packed": scan_cases,
                        "scan_packed_fused": fused_cases}, f, indent=1)
     # each kernel at the shape its engine's main path gives it: the run
-    # engine's plane of real CTCF scores, the window engine's region batch
+    # engine's plane of real CTCF scores, the window engine's region batch;
+    # launches on each path, counted from 0 just before it
     print(json.dumps({"kernels": [
         _kernel_line("exact_hist", "grafimo_tpu_torch/csrc/hist.cu",
                      "grafimo_tpu/ops/pallas_hist.py:90", launches,
-                     [peaked] + hist_cases, peaked),
+                     [peaked] + hist_cases, peaked, {
+                         "run engine 10 Mbp, 1 device": launches,
+                         "run engine 10 Mbp, 2 shards of cuda:0":
+                             shard_launches,
+                         "(4, 2) grid functions": grid_launches["exact_hist"],
+                         "2 processes, both ranks, peak set + one region":
+                             rank_launches,
+                         "--profile, peak set": profile_launches,
+                     }),
         _kernel_line("scan_packed", "grafimo_tpu_torch/csrc/scan_packed.cu",
                      "grafimo_tpu/ops/pallas_scan.py:74", scan_launches,
-                     scan_cases + fused_cases, fused_cases[0]),
+                     scan_cases + fused_cases, fused_cases[0], {
+                         "window engine, peak set": scan_launches,
+                         "(4, 2) grid functions":
+                             grid_launches["scan_packed"],
+                     }),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

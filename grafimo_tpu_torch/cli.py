@@ -5,7 +5,8 @@ The reference's parser and argument-to-workflow mapping
 (:func:`_reference_parser`, :func:`args_to_workflow`;
 ``tests/test_torch_isolation.py`` pins them), with one flag added:
 ``--device {cuda,cpu}``, default ``cuda``.  ``cuda`` without a visible
-card is an error, never a silent CPU run.
+card is an error, never a silent CPU run.  The help of ``--profile`` and
+of the multi-host flags is reworded for torch; the flags are the same.
 """
 
 import argparse
@@ -251,17 +252,35 @@ def get_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--device", choices=DEVICES, default="cuda",
-        help="torch device of the findmotif scan; cuda fails when no card "
-             "is visible. Default: %(default)s.",
+        help="torch device of the findmotif scan: cuda splits the run "
+             "engine's scan over every visible card (CUDA_VISIBLE_DEVICES "
+             "narrows them) and fails when none is visible. Default: "
+             "%(default)s.",
     )
+    # the reference's help names its jax/TPU machinery; the flags are the
+    # same
+    helps = {
+        "profile_dir": "write a torch.profiler trace (CPU and CUDA "
+                       "activities) of the scan phase to this directory, "
+                       "one Chrome trace per process",
+        "coordinator": "multi-host: torch.distributed (gloo) rendezvous "
+                       "address host:port, or \"auto\" to read torchrun's "
+                       "MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK",
+        "num_processes": "multi-host: total number of processes",
+    }
+    for action in parser._actions:
+        if action.dest in helps:
+            action.help = helps[action.dest]
     return parser
 
 
 def main(argv=None) -> int:
     """Run one workflow with the reference's error discipline
     (``grafimo_tpu/cli.py:242-271``): every uncaught exception prints one
-    red line and exits 1 unless ``--debug``; SIGINT exits 2."""
-    from grafimo_tpu_torch.device import resolve_device
+    red line and exits 1 unless ``--debug``; SIGINT exits 2.  A process
+    group that ``findmotif`` joined is left on the way out."""
+    from grafimo_tpu_torch.device import resolve_devices
+    from grafimo_tpu_torch.parallel.cluster import shutdown_cluster
     from grafimo_tpu_torch.workflows import buildvg, findmotif
 
     parser = get_parser()
@@ -271,7 +290,7 @@ def main(argv=None) -> int:
         if args.workflow == "buildvg":
             buildvg(workflow)
         else:
-            findmotif(workflow, resolve_device(args.device))
+            findmotif(workflow, resolve_devices(args.device))
     except KeyboardInterrupt:
         sys.stderr.write("\nCaught SIGINT. GRAFIMO-TPU will exit\n")
         return 2
@@ -280,4 +299,6 @@ def main(argv=None) -> int:
             raise
         sys.stderr.write(f"\033[31m\nERROR: {e}\033[0m\n")
         return 1
+    finally:
+        shutdown_cluster()
     return 0

@@ -3,14 +3,17 @@
 Counterpart of ``grafimo_tpu/workflows.py``.  ``buildvg`` is host-only
 and copied (``:70-128``) because the reference module imports jax; so
 are the graph-loading helpers (``:131-302``).  ``findmotif`` runs either
-engine -- the default run engine or the per-window engine -- on one
-explicit torch device (``:366-417, 453-578``).  Options whose device half
-is not ported yet raise with the ``ROADMAP.md`` item that ports them.
+engine -- the default run engine over a list of explicit torch devices,
+or the per-window engine on the first of them -- in one process or, with
+``--coordinator``, in several (``:366-578``; ``parallel/cluster.py``).
+Options that cannot run raise with the ``ROADMAP.md`` item that records
+why.
 """
 
+import contextlib
 import os
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -25,6 +28,7 @@ from grafimo_tpu_torch.models.parse import load_motifs
 from grafimo_tpu_torch.report.writer import print_results, write_results
 from grafimo_tpu_torch.utils.constants import DEFAULT_OUTDIR
 from grafimo_tpu_torch.device import check_deps
+from grafimo_tpu_torch.parallel import cluster
 
 GVT_SUFFIX = ".gvt.npz"
 
@@ -262,12 +266,15 @@ def _load_graphs(
 
 def _scan_cache_path(workflow: Findmotif, regions, width: int) -> str:
     """Checkpoint file for one (graph inputs, region set, width), keyed by
-    graph paths + mtimes (``grafimo_tpu/workflows.py:305-336``; single
-    process, so no process-index key)."""
+    graph paths + mtimes (``grafimo_tpu/workflows.py:305-336``)."""
     import hashlib
 
     h = hashlib.sha256()
     h.update(b"scan-cache-v1")
+    rank, n_proc = cluster.rank_and_size()
+    if n_proc > 1:
+        # per-host region shards differ: key the checkpoint per process
+        h.update(f"proc{rank}/{n_proc}".encode())
     sources = []
     if workflow.has_graphgenome():
         sources.append(workflow.graph_genome)
@@ -290,23 +297,27 @@ def _scan_cache_path(workflow: Findmotif, regions, width: int) -> str:
     )
 
 
-def _reject_unported(workflow: Findmotif) -> None:
-    """Raise for options whose device half is not ported yet."""
-    if workflow.profile_dir:
-        raise NotPortedError(
-            "--profile is not ported to torch yet (ROADMAP A15)"
-        )
-    if workflow.coordinator or workflow.num_processes or (
-        workflow.process_id >= 0
-    ):
-        raise NotPortedError(
-            "--coordinator / --num-processes / --process-id: multi-host "
-            "scans are not ported to torch yet (ROADMAP A13)"
-        )
+@contextlib.contextmanager
+def _profiled(profile_dir: str, devices: Sequence[torch.device], rank: int):
+    """``torch.profiler`` over the enclosed phase, CPU and (when a device
+    is a card) CUDA activities, written to ``profile_dir`` as one Chrome
+    trace per process, which TensorBoard and Perfetto open (reference
+    ``workflows.py:437-449, 552-554``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if any(d.type == "cuda" for d in devices):
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(profile_dir, f"grafimo_rank{rank}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")
 
 
 def _scan_runs(workflow: Findmotif, motif_set: MotifSet, regions, graphs,
-               device: torch.device) -> Dict[str, object]:
+               devices: Sequence[torch.device]) -> Dict[str, object]:
     """The run engine: one extraction + scan pass per distinct width,
     shared by all motifs of that width (reference grafimo.py:176;
     ``grafimo_tpu/workflows.py:453-517``)."""
@@ -348,7 +359,7 @@ def _scan_runs(workflow: Findmotif, motif_set: MotifSet, regions, graphs,
         dfs = compute_results_runs(
             motif_set.by_width(width),
             region_runs_list,
-            device,
+            devices,
             threshold=workflow.threshold,
             no_qvalue=workflow.no_qvalue,
             qval_t=workflow.qval_t,
@@ -413,13 +424,34 @@ def _scan_windows(workflow: Findmotif, motif_set: MotifSet, regions,
     return results
 
 
-def findmotif(workflow: Findmotif, device: torch.device) -> List[str]:
-    """Scan the variation graph(s) for motif occurrences on ``device``;
-    returns the written report directories (empty for ``--text-only``)."""
+def findmotif(workflow: Findmotif,
+              devices: Sequence[torch.device]) -> List[str]:
+    """Scan the variation graph(s) for motif occurrences on ``devices``
+    (the run engine splits each slice over all of them, the window engine
+    runs on the first); returns the written report directories (empty for
+    ``--text-only`` and on every rank but 0)."""
     workflow.validate()
-    _reject_unported(workflow)
-    print_welcome()
-    check_deps(device)
+    devices = list(devices)
+    # multi-host: join the process group before any device work; every
+    # rank scans its round-robin region shard and rank 0 writes the
+    # merged report
+    rank, n_proc = 0, 1
+    if workflow.coordinator or workflow.num_processes:
+        rank, n_proc = cluster.initialize_cluster(
+            workflow.coordinator, workflow.num_processes,
+            workflow.process_id,
+        )
+    if workflow.engine == "windows" and n_proc > 1:
+        # every rank raises here, before any device work or output
+        raise GrafimoError(
+            "--engine windows runs in one process only: the reference "
+            "scans each host's region shard with no merge and writes a "
+            "partial report with local q-values (ROADMAP C6); use the "
+            "default --engine runs for a multi-process scan"
+        )
+    if rank == 0:
+        print_welcome()
+        check_deps(devices)
     motif_set = MotifSet()
     for motif_file in workflow.motifs:
         motif_set.add(
@@ -430,12 +462,32 @@ def findmotif(workflow: Findmotif, device: torch.device) -> List[str]:
         )
     print(f"Read {len(motif_set)} motif(s); widths: {sorted(motif_set.widths)}")
     regions, region_num = read_bed_regions(workflow.bedfile)
-    print(f"Found {region_num} regions in {workflow.bedfile}")
+    if rank == 0:
+        print(f"Found {region_num} regions in {workflow.bedfile}")
     graphs = _load_graphs(workflow, list(regions.keys()))
-    if workflow.engine == "runs":
-        results = _scan_runs(workflow, motif_set, regions, graphs, device)
-    else:
-        results = _scan_windows(workflow, motif_set, regions, graphs, device)
+    if n_proc > 1:
+        flat = [
+            (chrom, s, e) for chrom in regions for (s, e) in regions[chrom]
+        ]
+        mine = cluster.shard_regions(flat, rank, n_proc)
+        regions = {}
+        for chrom, s, e in mine:
+            regions.setdefault(chrom, []).append((s, e))
+        if workflow.verbose:
+            print(
+                f"process {rank}/{n_proc}: scanning "
+                f"{len(mine)}/{len(flat)} regions"
+            )
+    with (_profiled(workflow.profile_dir, devices, rank)
+          if workflow.profile_dir else contextlib.nullcontext()):
+        if workflow.engine == "runs":
+            results = _scan_runs(workflow, motif_set, regions, graphs,
+                                 devices)
+        else:
+            results = _scan_windows(workflow, motif_set, regions, graphs,
+                                    devices[0])
+    if rank != 0:
+        return []
     outdirs = []
     chrom_graphs = {d: g for (d, g) in graphs.values()}
     for motif in motif_set:

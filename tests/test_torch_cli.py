@@ -1,8 +1,9 @@
 """The port's CLI (``python -m grafimo_tpu_torch``) against the
 reference's on the toy data: byte-identical TSV and GFF3 reports from
 both engines, the two engines against each other, a run with JAX blocked
-from import, and the loud failures (no card behind ``--device cuda``,
-options not ported yet)."""
+from import, ``--profile``, and the loud failures (no card behind
+``--device cuda``, multi-host flags missing their settings, the window
+engine over several processes, ``buildvg --export``)."""
 
 import ast
 import os
@@ -224,16 +225,62 @@ def test_cuda_without_a_card_fails_loudly(input_dir, tmp_path, toy_bed,
     ],
 )
 def test_unported_options_fail_loudly(input_dir, tmp_path, toy_bed, capsys,
-                                      extra, item):
+                                      monkeypatch, extra, item):
+    """The options that ROADMAP A15 (``--profile``) and A13 (multi-host)
+    ported no longer raise as unported: ``--profile`` runs; a multi-host
+    flag without the rest of its settings fails with one line naming
+    what is missing, before any report; ``--process-id`` alone is ignored,
+    as in the reference (``grafimo_tpu/workflows.py:376``)."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
     graphs = _build(port_main, input_dir, tmp_path / "g")
     out = tmp_path / "out"
+    extra = [str(tmp_path / a) if a == "prof" else a for a in extra]
     rc = port_main([
         *_findmotif_args(input_dir, graphs, toy_bed, "single_graph_meme", out),
         "--device", "cpu", *extra,
     ])
+    err = capsys.readouterr().err
+    assert "not ported" not in err and f"ROADMAP {item}" not in err
+    if extra[0] in ("--profile", "--process-id"):
+        assert rc == 0
+        assert (out / "grafimo_out.tsv").exists()
+        return
     assert rc == 1
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+    want = ("--num-processes N >= 1" if extra[0] == "--coordinator"
+            else "MASTER_ADDR, MASTER_PORT, RANK not set")
+    assert want in err
     assert not out.exists()
+
+
+def test_profile_writes_trace_and_same_report(input_dir, tmp_path, toy_bed,
+                                              capsys):
+    """``--device cpu --profile DIR`` writes one Chrome trace of the scan
+    phase into DIR (CPU activity: the histogram's plain version shows in
+    it) and the same report bytes as a run without it."""
+    import json
+
+    graphs = _build(port_main, input_dir, tmp_path / "g")
+    prof = tmp_path / "prof"
+    for out, extra in (("plain", []), ("profiled", ["--profile", str(prof)])):
+        assert port_main([
+            *_findmotif_args(input_dir, graphs, toy_bed, "single_graph_meme",
+                             tmp_path / out),
+            "--device", "cpu", *extra,
+        ]) == 0
+    assert "profiler trace written to" in capsys.readouterr().out
+    from grafimo_tpu_torch.cli import get_parser
+
+    helps = {a.dest: a.help for a in get_parser()._actions}
+    assert "torch.profiler" in helps["profile_dir"]
+    assert "jax" not in helps["coordinator"]
+    traces = sorted(p.name for p in prof.iterdir())
+    assert traces == ["grafimo_rank0.pt.trace.json"]
+    events = json.loads((prof / traces[0]).read_text())["traceEvents"]
+    assert any("bincount" in str(e.get("name", "")) for e in events)
+    for name in ("grafimo_out.tsv", "grafimo_out.gff"):
+        assert (tmp_path / "profiled" / name).read_bytes() == (
+            tmp_path / "plain" / name).read_bytes()
 
 
 def test_buildvg_export_fails_loudly(input_dir, tmp_path, capsys):

@@ -29,8 +29,12 @@ import pytest
 
 import grafimo_tpu.cli as ref_cli
 import grafimo_tpu.native as ref_native
+import grafimo_tpu.parallel.cluster as ref_cluster
+import grafimo_tpu.parallel.pipeline as ref_pipeline
 import grafimo_tpu_torch.cli as port_cli
 import grafimo_tpu_torch.native as port_native
+import grafimo_tpu_torch.parallel.cluster as port_cluster
+import grafimo_tpu_torch.parallel.pipeline as port_pipeline
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_DIR = REPO / "grafimo_tpu_torch"
@@ -107,12 +111,15 @@ def test_every_module_imports_with_reference_and_jax_blocked():
         "          if m.split('.')[0] in ('grafimo_tpu', 'jax')\n"
         "          and sys.modules[m] is not None]\n"
         "assert not leaked, leaked\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", prog], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= len(COPIES)
+    names = proc.stdout.split()
+    assert len(names) >= len(COPIES)
+    assert {"grafimo_tpu_torch.parallel.pipeline",
+            "grafimo_tpu_torch.parallel.cluster"} <= set(names)
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -134,6 +141,18 @@ def test_cli_copy_pinned_to_reference(name):
     got.name = want.name
     assert ast.dump(got) == ast.dump(want)
     assert port_cli.__version__ == ref_cli.__version__
+
+
+@pytest.mark.parametrize("mods,name", [
+    ((ref_cluster, port_cluster), "shard_regions"),
+    ((ref_pipeline, port_pipeline), "pad_batch"),
+])
+def test_parallel_copy_pinned_to_reference(mods, name):
+    """The functions ``parallel/`` copies as they are: the round-robin
+    region shard and the batch padding."""
+    want, got = (ast.dump(ast.parse(inspect.getsource(getattr(m, name))))
+                 for m in mods)
+    assert got == want
 
 
 def test_port_parser_adds_only_device():
