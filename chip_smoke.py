@@ -13,8 +13,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    card, bit for bit, at the main path's shapes (and past the TPU
    kernel's 16-column cap in column groups, and on its cluster path for
    bins past one block), and -- after phase
-   5 -- on real CTCF scores of phase 5's chromosome (the peaked case),
-   with and without warp-aggregated atomics;
+   5 -- on real CTCF scores of phase 5's chromosome (the peaked case);
 4. ``scan_batches`` over a seeded mix of all five batch kinds on the card
    and on the CPU: identical histograms and hits;
 5. the main path at chromosome scale: a synthetic chromosome at the
@@ -55,14 +54,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     one-region BED (rank 1 scans nothing); rank 0's reports must be the
     one-process ones byte for byte;
 12. ``--profile``: the trace exists and names the histogram kernel; the
-    report is unchanged.
+    report is unchanged;
+13. the run engine's device half: the hit-compaction kernel against its
+    plain version at the run engine's slice shapes of real CTCF scores of
+    phase 5's chromosome, with no hits, sparse hits (p < 1e-4, in the
+    flush read's and in the block's own index tier), past the index
+    capacity (p < 1e-3) and dense (``-t 1``): counts exact, indices equal
+    once sorted, hit bits equal, and for the block's own index tier the
+    host's read of those indices against a read of its packed bits; the
+    histogram kernel against its plain
+    version at compressed bin counts (each column's reachable scores) for
+    k in {8, 19, 70} and M in {2, 16, 40}, and on phase 3's peaked plane;
+    ``multi.meme`` (widths 19, 8, 12) on phase 5's pocket region, cuda
+    reports byte-identical to cpu ones.
+
+Phase 5's whole-chromosome run and phase 9's scans also check the
+device->host reads (``runscan.READS``): one per device and flush block of
+slices, one per block denser than the flush read's index tier, and one
+histogram read per device, never one per slice; and one compaction launch
+per histogram launch.
 
 Each kernel case prints its time as the median of 10 single launches and
 as the mean of 100 back-to-back launches (CUDA events), its device time
 per launch (``torch.profiler``), the plain version's time, the time of
 one PyTorch call computing the same function where there is one
-(``torch.bincount``), and its bound: the bytes the function must move
-over the card's 3.35 TB/s.
+(``torch.bincount`` for the histogram, ``torch.nonzero`` of the hit
+predicate for the compaction), and its bound: the bytes the function
+must move over the card's 3.35 TB/s.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -239,13 +257,13 @@ def _timings(torch, fn, kernel, plain=None, library=None):
     }
 
 
-def _fmt(t, bound_ms):
+def _fmt(t, bound_ms, library="torch.bincount"):
     def f(x):
         return "n/a" if x is None else f"{x:.4f}"
 
     return (f"kernel {f(t['ms'])} ms single, {f(t['ms_back_to_back'])} ms "
             f"back to back, device {f(t['device_ms'])} ms; plain "
-            f"{f(t['plain_ms'])} ms; torch.bincount {f(t['library_ms'])} ms; "
+            f"{f(t['plain_ms'])} ms; {library} {f(t['library_ms'])} ms; "
             f"bound {bound_ms:.5f} ms")
 
 
@@ -505,8 +523,34 @@ def _report(outdir):
     return tsv, n_hits
 
 
+def _check_reads(label, reads, flush_blocks, n_devices):
+    """The scan's device->host reads: one per device and flush block, one
+    per block denser than the flush read's index tier, one histogram read
+    per device."""
+    want = flush_blocks * n_devices
+    if reads["flush"] != want or reads["hist"] != n_devices:
+        raise RuntimeError(f"{label}: reads {reads}, want {want} flush reads "
+                           f"and {n_devices} histogram reads")
+    return (f"device->host reads {sum(reads.values())} ({reads['flush']} "
+            f"flush for {flush_blocks} flush block(s) x {n_devices} "
+            f"device(s), {reads['indices']} index, {reads['bits']} hit-bit "
+            f"and {reads['hist']} histogram reads)")
+
+
+def _n_slices(batches, m, n_devices):
+    """The slices ``runscan.scan_batches`` cuts ``batches`` into on the
+    card, ``n_devices`` blocks a slice."""
+    import grafimo_tpu_torch.runscan as rb
+
+    cap = rb.MAX_BASES_PER_DISPATCH // max(1, m // 4)
+    return sum(
+        -(-len(b.chunks) // (max(1, cap // b.R) * n_devices)) for b in batches)
+
+
 def phase_main_path(torch, wd):
-    from grafimo_tpu_torch.ops import hist
+    import grafimo_tpu_torch.runscan as rb
+    from grafimo_tpu_torch.ops import compact, hist
+    from grafimo_tpu_torch.workflows import load_graph_file
 
     out, dt = run_checked(
         [sys.executable, "-c", SYNTH_PROG, wd, str(SMOKE_MBP),
@@ -528,13 +572,31 @@ def phase_main_path(torch, wd):
     with open(whole, "w") as f:
         f.write(f"chr21\t0\t{synth['length']}\n")
     hist.reset_counts()
+    compact.reset_counts()
+    rb.reset_reads()
     text, wall = _findmotif([
         "findmotif", "-d", gdir, "-b", whole, "-m", MOTIF, "-t", "1e-4",
         "-o", os.path.join(wd, "out_whole"), "--verbose", "--device", "cuda",
     ])
     launches = dict(hist.COUNTS)
+    compactions = dict(compact.COUNTS)
+    reads = dict(rb.READS)
     if launches["kernel"] <= 0 or launches["plain"] != 0:
         raise RuntimeError(f"main path did not run on the kernel: {launches}")
+    if (compactions["kernel"] != launches["kernel"]
+            or compactions["plain"] != 0):
+        raise RuntimeError(f"main path did not compact every block on the "
+                           f"kernel: {compactions}, {launches}")
+    graph = load_graph_file(os.path.join(gdir, "21.gvt.npz"))
+    batches = rb.batch_runs(rb.build_region_runs(
+        graph, "21", [(0, synth["length"])], 19), 19)
+    slices = _n_slices(batches, 2, 1)
+    if slices != launches["kernel"]:
+        raise RuntimeError(f"{slices} slices but {launches['kernel']} "
+                           f"blocks launched")
+    read_line = _check_reads(
+        "whole-chromosome findmotif", reads,
+        -(-slices // rb.SCAN_FLUSH_SLICES), 1)
     _, n_hits = _report(os.path.join(wd, "out_whole"))
     m = re.search(r"run scan: \d+ device batches, (\d+) windows/strand, "
                   r"(\d+) raw hits \(([\d.]+)s\)", text)
@@ -548,7 +610,9 @@ def phase_main_path(torch, wd):
         f"(whole smoke process), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"histogram kernel launches {launches['kernel']}, plain "
-        f"{launches['plain']}; mismatch guard passed")
+        f"{launches['plain']}; compaction kernel launches "
+        f"{compactions['kernel']}, plain {compactions['plain']}; {slices} "
+        f"slices, {read_line}; mismatch guard passed")
 
     pocket_lo, pocket_hi = synth["pockets"][0]
     mid = (pocket_lo + pocket_hi) // 2
@@ -569,7 +633,7 @@ def phase_main_path(torch, wd):
     if reports["cuda"][0] != reports["cpu"][0]:
         raise RuntimeError("1 Mbp pocket region: cuda and cpu TSVs differ")
     log("1 Mbp pocket region: cuda TSV byte-identical to cpu TSV")
-    return launches["kernel"], gdir, synth
+    return launches["kernel"], compactions["kernel"], gdir, synth, batches
 
 
 def _random_packed(torch, b, k, m, gen, flag_frac=0.0, high=1001):
@@ -911,7 +975,7 @@ def _same_report(a, b, what):
                 raise RuntimeError(f"{what}: {name} differs")
 
 
-def phase_multi_device(torch, wd, gdir, synth):
+def phase_multi_device(torch, wd, gdir, batches):
     """Phase 9: the run engine's scan split over a device list at phase
     5's size -- the chromosome's own batches through ``scan_batches`` on
     one device and on two shards of the same card (and on every card when
@@ -920,14 +984,9 @@ def phase_multi_device(torch, wd, gdir, synth):
     import numpy as np
 
     import grafimo_tpu_torch.runscan as rb
-    from grafimo_tpu_torch.ops import hist
-    from grafimo_tpu_torch.workflows import load_graph_file
+    from grafimo_tpu_torch.ops import compact, hist
 
-    graph = load_graph_file(os.path.join(gdir, "21.gvt.npz"))
     params = _ctcf_scan_inputs()
-    k = params[3]
-    batches = rb.batch_runs(
-        rb.build_region_runs(graph, "21", [(0, synth["length"])], k), k)
     one = [torch.device("cuda", 0)]
     configs = {"1 shard": one, "2 shards on cuda:0": one * 2}
     if torch.cuda.device_count() > 1:
@@ -938,14 +997,25 @@ def phase_multi_device(torch, wd, gdir, synth):
     seconds = {name: [] for name in configs}
     results = {}
     launches = {}
+    reads = {}
     for name in order:
         hist.reset_counts()
+        compact.reset_counts()
+        rb.reset_reads()
         res = rb.scan_batches(batches, *params, configs[name])
         seconds[name].append(res.scoring_time)
-        if hist.COUNTS["kernel"] <= 0 or hist.COUNTS["plain"]:
+        if (hist.COUNTS["kernel"] <= 0 or hist.COUNTS["plain"]
+                or compact.COUNTS != {"kernel": hist.COUNTS["kernel"],
+                                      "plain": 0}):
             raise RuntimeError(f"10 Mbp scan on {name} did not run on the "
-                               f"kernel: {dict(hist.COUNTS)}")
+                               f"kernels: {dict(hist.COUNTS)}, "
+                               f"{dict(compact.COUNTS)}")
         launches[name] = hist.COUNTS["kernel"]
+        devs = configs[name]
+        reads[name] = _check_reads(
+            f"10 Mbp scan on {name}", dict(rb.READS),
+            -(-_n_slices(batches, 2, len(devs)) // rb.SCAN_FLUSH_SLICES),
+            len({str(d) for d in devs}))
         results.setdefault(name, res)
     want = results["1 shard"]
     for name, res in results.items():
@@ -956,24 +1026,28 @@ def phase_multi_device(torch, wd, gdir, synth):
     log(f"{SMOKE_MBP} Mbp scan_batches, {len(batches)} batches, "
         f"{int(want.hists.sum())} window-strands, {len(want.hits)} hits: "
         + "; ".join(f"{name}: scan {', '.join(f'{t:.3f}' for t in ts)} s, "
-                    f"{launches[name]} hist.cu launches"
+                    f"{launches[name]} hist.cu and compact.cu launches, "
+                    f"{reads[name]}"
                     for name, ts in seconds.items())
         + "; histograms and hits identical")
     out = os.path.join(wd, "out_whole_2shards")
     hist.reset_counts()
+    compact.reset_counts()
     text, wall = _entry_findmotif([
         "findmotif", "-d", gdir, "-b", os.path.join(wd, "whole.bed"),
         "-m", MOTIF, "-t", "1e-4", "-o", out, "--verbose"], one * 2)
     entry_launches = dict(hist.COUNTS)
-    if entry_launches["kernel"] <= 0 or entry_launches["plain"]:
-        raise RuntimeError(f"2-shard findmotif did not run on the kernel: "
-                           f"{entry_launches}")
+    if (entry_launches["kernel"] <= 0 or entry_launches["plain"]
+            or compact.COUNTS != {"kernel": entry_launches["kernel"],
+                                  "plain": 0}):
+        raise RuntimeError(f"2-shard findmotif did not run on the kernels: "
+                           f"{entry_launches}, {dict(compact.COUNTS)}")
     _same_report(out, os.path.join(wd, "out_whole"), "2-shard findmotif")
     m = re.search(r"run scan: .*\(([\d.]+)s\)", text)
     log(f"whole-chromosome findmotif on 2 shards of cuda:0: scan "
-        f"{m.group(1) if m else 'n/a'} s, wall {wall:.2f}s, hist.cu "
-        f"launches {entry_launches['kernel']}; TSV and GFF3 byte-identical "
-        f"to the 1-device run")
+        f"{m.group(1) if m else 'n/a'} s, wall {wall:.2f}s, hist.cu and "
+        f"compact.cu launches {entry_launches['kernel']}; TSV and GFF3 "
+        f"byte-identical to the 1-device run")
     return entry_launches["kernel"]
 
 
@@ -983,7 +1057,7 @@ def phase_grid(torch):
     single-device kinds and ``score_hist_core``."""
     import numpy as np
 
-    from grafimo_tpu_torch.ops import hist, scan_packed
+    from grafimo_tpu_torch.ops import compact, hist, scan_packed
     from grafimo_tpu_torch.ops import score_runs as sr
     from grafimo_tpu_torch.ops import score_windows as sw
     from grafimo_tpu_torch.parallel import pipeline as pp
@@ -1002,22 +1076,25 @@ def phase_grid(torch):
          np.zeros(r, np.uint8)]))
     lut = sr.pwm_lut_from_kernel(kernel, dev)
     t_mins, t_cuts = (torch.as_tensor(x, device=dev) for x in (mins, cuts))
-    launches = {"exact_hist": 0, "scan_packed": 0}
+    launches = {"exact_hist": 0, "scan_packed": 0, "compact_hits": 0}
 
     def counted(fn, *args):
         hist.reset_counts()
         scan_packed.reset_counts()
+        compact.reset_counts()
         out = fn(*args)
         launches["exact_hist"] += hist.COUNTS["kernel"]
         launches["scan_packed"] += scan_packed.COUNTS["kernel"]
-        if hist.COUNTS["plain"] or scan_packed.COUNTS["plain"]:
+        launches["compact_hits"] += compact.COUNTS["kernel"]
+        if (hist.COUNTS["plain"] or scan_packed.COUNTS["plain"]
+                or compact.COUNTS["plain"]):
             raise RuntimeError("a grid function ran a plain version on the "
                                "card")
         return out
 
-    def same(label, got, one_hist, one_hit):
+    def same(label, got, one_hist, one_scores):
         hist_g, hits_g, counts_g = got
-        want_hits = torch.nonzero(one_hit).cpu()
+        want_hits = torch.nonzero(compact.hit_mask(one_scores, t_cuts)).cpu()
         if not (torch.equal(hist_g, one_hist.cpu().long())
                 and torch.equal(hits_g, want_hits)
                 and torch.equal(counts_g, torch.bincount(want_hits[:, 2],
@@ -1033,14 +1110,14 @@ def phase_grid(torch):
                       kernel, mins, cuts)
         t = [torch.from_numpy(x).to(dev) for x in (packed, nbits, vbits)]
         n_run = same(f"run scan B={b}", got,
-                     *sr.scan_runs_device(*t, lut, t_mins, t_cuts, k, hs))
+                     *sr.scan_runs_device(*t, lut, t_mins, k, hs))
         gstart = rng.integers(0, len(genome) - r, b).astype(np.int32)
         got = counted(pp.sharded_resident_scan(grid, r, k, hs, with_n=True),
                       g4, gn, gstart, vbits, kernel, mins, cuts)
         g4d, gnd = sr.genome_planes_to_device(g4, gn, dev)
         n_res = same(f"resident scan B={b}", got, *sr.scan_runs_resident(
             g4d, gnd, torch.from_numpy(gstart).to(dev), t[2], lut, t_mins,
-            t_cuts, r, k, hs))
+            r, k, hs))
         codes = rng.integers(0, 4, (b * 128, k)).astype(np.uint8)
         codes[rng.random(len(codes)) < 0.01, 3] = 4  # N windows
         codes[-3:] = 5  # padding rows
@@ -1066,10 +1143,12 @@ def phase_grid(torch):
 RANK_PROG = BLOCK_JAX + (
     "import json\n"
     "from grafimo_tpu_torch.cli import main\n"
-    "from grafimo_tpu_torch.ops import hist\n"
+    "from grafimo_tpu_torch.ops import compact, hist\n"
     "rc = main(sys.argv[1:])\n"
     "print(json.dumps({'hist_launches': hist.COUNTS['kernel'], "
-    "'hist_plain': hist.COUNTS['plain']}))\n"
+    "'hist_plain': hist.COUNTS['plain'], "
+    "'compact_launches': compact.COUNTS['kernel'], "
+    "'compact_plain': compact.COUNTS['plain']}))\n"
     "sys.exit(rc)\n"
 )
 
@@ -1140,8 +1219,11 @@ def phase_two_processes(torch, wd, gdir):
         parts = []
         for rank, out in enumerate(outs):
             counts = json.loads(out.strip().splitlines()[-1])
-            if counts["hist_plain"]:
-                raise RuntimeError(f"rank {rank} ran the plain histogram")
+            if counts["hist_plain"] or counts["compact_plain"]:
+                raise RuntimeError(f"rank {rank} ran a plain version")
+            if counts["compact_launches"] != counts["hist_launches"]:
+                raise RuntimeError(f"rank {rank}: {counts}, want one "
+                                   f"compaction per histogram launch")
             launches += counts["hist_launches"]
             scan = re.search(r"run scan: .*\(([\d.]+)s\)", out)
             coll = re.search(r"cluster: rank \d/2, histogram all-reduce "
@@ -1182,6 +1264,9 @@ def phase_profile(torch, wd, gdir):
                if "exact_hist_kernel" in str(e.get("name", ""))]
     if not kernels:
         raise RuntimeError(f"{trace} names no exact_hist_kernel")
+    if not any("compact_hits_kernel" in str(e.get("name", ""))
+               for e in events):
+        raise RuntimeError(f"{trace} names no compact_hits_kernel")
     _same_report(out, os.path.join(wd, "out_peaks_runs_cuda"),
                  "--profile run")
     log(f"--profile: {trace} ({os.path.getsize(trace)} bytes, "
@@ -1189,6 +1274,216 @@ def phase_profile(torch, wd, gdir):
         f"{launches} launches counted), wall {wall:.2f}s; report "
         f"byte-identical to the run without it")
     return launches
+
+
+def _chrom_rows(torch, wd, rows, r, stride):
+    """``rows`` rows of ``r`` base codes of phase 5's chromosome on the
+    card, row i at ``i * stride`` (the run engine's strided backbone rows
+    when ``stride = r - k + 1``)."""
+    codes = _chrom_codes(wd, (rows - 1) * stride + r)
+    return torch.from_numpy(codes).cuda().long().unfold(0, r, stride)
+
+
+def _compact_case(torch, label, s, cuts):
+    """The compaction kernel against its plain version on ``s``, with the
+    run engine's index capacity (``SCAN_SMALLK`` in the flush row, up to
+    ``SCAN_TOPK`` with the block's own buffer): counts, bits, and the
+    indices once sorted; past the capacity, the kernel's indices are
+    distinct hits.  Then the case's timings."""
+    import grafimo_tpu_torch.runscan as rb
+    from grafimo_tpu_torch.ops import compact
+
+    smallk, topk = rb.SCAN_SMALLK, rb.SCAN_TOPK
+
+    def buffers():
+        return (torch.zeros(1, dtype=torch.int32, device="cuda"),
+                torch.full((smallk,), -1, dtype=torch.int32, device="cuda"),
+                torch.full((topk - smallk,), -1, dtype=torch.int32,
+                           device="cuda"))
+
+    got, want = buffers(), buffers()
+    bits = compact.compact_hits(s, cuts, *got)
+    want_bits = compact.compact_hits_reference(s, cuts, *want)
+    torch.cuda.synchronize()
+    n, n_want = int(got[0]), int(want[0])
+    err = max(abs(n - n_want),
+              int((bits.int() - want_bits.int()).abs().max()))
+    if err or not torch.equal(bits, want_bits):
+        raise RuntimeError(f"compact_hits != plain at {label}: counts {n} / "
+                           f"{n_want}, max err {err}")
+    kept = min(n, topk)
+    idx = torch.cat(got[1:])[:kept]
+    if n <= topk:
+        if not torch.equal(torch.sort(idx).values, torch.cat(want[1:])[:kept]):
+            raise RuntimeError(f"compact_hits != plain at {label}: indices")
+    else:
+        flat = torch.nonzero(compact.hit_mask(s, cuts).reshape(-1)).reshape(-1)
+        if not (torch.isin(idx, flat.to(torch.int32)).all()
+                and len(torch.unique(idx)) == kept):
+            raise RuntimeError(f"compact_hits at {label}: kept indices are "
+                               f"not distinct hits")
+    tier = ("flush read" if n <= smallk else "block's indices" if n <= topk
+            else "hit bits")
+    reads = {}
+    if tier == "block's indices":
+        # what the host pays for such a block after the flush read: its own
+        # indices past SCAN_SMALLK (the middle tier), or, without that tier,
+        # its packed bits, unpacked as scan_batches unpacks them
+        import numpy as np
+
+        from grafimo_tpu_torch.ops.score_runs import unpack_hitbits
+
+        noff = s.shape[1]
+        for name, fn in (
+            ("indices_read_ms",
+             lambda: np.sort(got[2][: n - smallk].cpu().numpy())),
+            ("bits_read_ms",
+             lambda: np.flatnonzero(unpack_hitbits(bits.cpu().numpy(),
+                                                   noff))),
+        ):
+            times = []
+            for _ in range(11):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            reads[name] = sorted(times)[len(times) // 2]
+        log(f"    {tier} tier read on the host (median of 11): own indices "
+            f"{reads['indices_read_ms']:.4f} ms, packed bits "
+            f"{reads['bits_read_ms']:.4f} ms")
+    # the plane and cutoffs read once; bits, count and kept indices written
+    bound = ((s.numel() + cuts.numel() + 1 + kept) * 4 + bits.numel()) \
+        / HBM_BYTES_PER_S * 1e3
+    t = _timings(
+        torch, lambda: compact.compact_hits(s, cuts, *got),
+        "compact_hits_kernel",
+        plain=lambda: compact.compact_hits_reference(s, cuts, *want),
+        library=lambda: torch.nonzero(compact.hit_mask(s, cuts)))
+    log(f"compact_hits vs plain [{label}] scores {tuple(s.shape)}: {n} hits "
+        f"({tier} tier), counts, indices and bits identical, max_abs_err 0; "
+        f"{_fmt(t, bound, 'torch.nonzero(predicate)')}")
+    return dict(t, label=label, max_abs_err=err, bound_ms=bound, hits=n,
+                tier=tier, **reads)
+
+
+def _random_motif_lut(torch, k, m, seed):
+    """``m`` columns (forward and reverse complement of ``m // 2`` motifs
+    from seeded random counts, as the port's loaders scale them) as a LUT
+    on the card, and each column's reachable score range."""
+    import numpy as np
+
+    from grafimo_tpu_torch.models.background import load_bg
+    from grafimo_tpu_torch.models.motif import Motif
+    from grafimo_tpu_torch.models.parse import _prepare_counts_motif
+    from grafimo_tpu_torch.models.process import process_motif
+    from grafimo_tpu_torch.ops.score_runs import (
+        pwm_lut_from_kernel,
+        pwms_to_conv_kernel,
+        reverse_complement_pwm,
+    )
+    from grafimo_tpu_torch.utils.constants import UNIF
+
+    rng = np.random.default_rng(seed)
+    mats = []
+    for i in range(m // 2):
+        counts = rng.integers(1, 50, (4, k)).astype(np.float64)
+        motif = process_motif(_prepare_counts_motif(
+            Motif(motif_id=f"R{i}", motif_name=f"R{i}", counts=counts,
+                  width=k), load_bg(UNIF, False), 0.1))
+        mats += [motif.score_matrix, reverse_complement_pwm(motif.score_matrix)]
+    kernel = pwms_to_conv_kernel(mats)
+    lut = pwm_lut_from_kernel(kernel, torch.device("cuda"))
+    return lut, lut.min(dim=1).values.sum(dim=0), lut.max(dim=1).values.sum(
+        dim=0)
+
+
+def _compressed(s, bases, tops):
+    """Scores as the main path hands them to the histogram: bin 0 below
+    the base, 1 + i the score ``base + i``, -1 invalid; and the bin
+    count."""
+    import torch
+
+    comp_size = int((tops - bases).max()) + 2
+    h = torch.where(s < 0, -1, torch.clamp(s - bases + 1, min=0))
+    return h.to(torch.int32).contiguous(), comp_size
+
+
+def phase_device_half(torch, wd, gdir):
+    """Phase 13: the compaction kernel on real CTCF scores at the run
+    engine's slice shapes, the histogram kernel at compressed bin counts,
+    and ``multi.meme`` on the pocket region, cuda against cpu."""
+    from grafimo_tpu_torch.models.pvalue import PvalueLookup
+    from grafimo_tpu_torch.ops.score_runs import _window_scores
+
+    ctcf, lut, _ = _ctcf_lut(torch)
+    lookup = PvalueLookup(ctcf.pval_table)
+    k = ctcf.width
+    r = 2048
+    stride = r - k + 1
+    compact_cases = []
+    for rows in (2048, 4096):
+        s = _window_scores(_chrom_rows(torch, wd, rows, r, stride), lut,
+                           k).contiguous()
+        levels = [("no hits", None), ("sparse, p < 1e-4", 1e-4)]
+        if rows == 4096:
+            levels += [("past the index capacity, p < 1e-3", 1e-3),
+                       ("dense, -t 1", 1.0)]
+        for label, p in levels:
+            cut = 1000 * k + 1 if p is None else lookup.score_cutoff(p)
+            cuts = torch.full((2,), cut, dtype=torch.int32, device="cuda")
+            compact_cases.append(_compact_case(
+                torch, f"{rows} strided backbone rows, real CTCF scores, "
+                f"{label}", s, cuts))
+        del s
+    torch.cuda.empty_cache()
+
+    hist_cases = []
+    bases = lut.min(dim=1).values.sum(dim=0)
+    tops = lut.max(dim=1).values.sum(dim=0)
+    s = _window_scores(_chrom_rows(torch, wd, 2048, r, r), lut, k)
+    h, comp_size = _compressed(s, bases, tops)
+    hist_cases.append(_check_hist_case(
+        torch, "peaked: real CTCF scores, main path B=R=2048 k=19 M=2, "
+        "compressed", h, comp_size))
+    del s, h
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for k_, m in [(k_, m) for k_ in (8, 19, 70) for m in (2, 16, 40)]:
+        lut_r, b_r, t_r = _random_motif_lut(torch, k_, m, SEED + k_ + m)
+        codes = torch.randint(0, 4, (2048, r), device="cuda", generator=gen)
+        s = _window_scores(codes, lut_r, k_)
+        invalid = torch.rand(s.shape, device="cuda", generator=gen) < 0.05
+        h, comp_size = _compressed(s.masked_fill_(invalid, -1), b_r, t_r)
+        block = 58112  # bins one block holds on an H100
+        path = (" (cluster)" if comp_size > block
+                else " (column groups)" if m * comp_size > block else "")
+        hist_cases.append(_check_hist_case(
+            torch, f"compressed, k={k_} M={m}{path}", h, comp_size))
+        del lut_r, codes, s, invalid, h
+    torch.cuda.empty_cache()
+
+    multi = os.path.join(HERE, "tests", "data", "input", "multi.meme")
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        outdir = os.path.join(wd, f"out_multi_{dev}")
+        _, dt = _findmotif([
+            "findmotif", "-d", gdir, "-b", os.path.join(wd, "pocket.bed"),
+            "-m", multi, "-t", "1e-4", "-o", outdir, "--verbose", "--device",
+            dev,
+        ])
+        reports[dev] = {name: open(os.path.join(outdir, name), "rb").read()
+                        for name in sorted(os.listdir(outdir))
+                        if name.endswith((".tsv", ".gff"))}
+        log(f"multi.meme (widths 19, 8, 12) on the 1 Mbp pocket region on "
+            f"{dev}: wall {dt:.2f}s")
+    n_rows = sum(len(v.splitlines()) - 1 for name, v in reports["cuda"].items()
+                 if name.endswith(".tsv"))
+    if len(reports["cuda"]) != 6 or n_rows <= 0:
+        raise RuntimeError(f"multi.meme: reports {sorted(reports['cuda'])}, "
+                           f"{n_rows} rows")
+    if reports["cuda"] != reports["cpu"]:
+        raise RuntimeError("multi.meme: cuda and cpu reports differ")
+    log(f"multi.meme: {n_rows} report rows over 3 motifs; every cuda TSV "
+        f"and GFF3 byte-identical to cpu's")
+    return compact_cases, hist_cases
 
 
 def _kernel_line(name, source, replaces, launches, cases, headline, by_path):
@@ -1222,29 +1517,38 @@ def main() -> int:
     hist_cases = phase_kernel_vs_plain(torch)
     phase_cuda_vs_cpu(torch)
     with tempfile.TemporaryDirectory(prefix="grafimo_smoke_") as wd:
-        launches, gdir, synth = phase_main_path(torch, wd)
+        launches, compactions, gdir, synth, batches = phase_main_path(torch,
+                                                                      wd)
         peaked = phase_peaked_hist(torch, wd)
         scan_cases = phase_scan_packed_vs_plain(torch)
         fused_cases = phase_fused_vs_plain(torch)
         hist_cases += phase_hist_variants(torch)
         scan_launches = phase_window_engine(torch, wd, gdir, synth)
-        shard_launches = phase_multi_device(torch, wd, gdir, synth)
+        shard_launches = phase_multi_device(torch, wd, gdir, batches)
+        del batches
         grid_launches = phase_grid(torch)
         rank_launches = phase_two_processes(torch, wd, gdir)
         profile_launches = phase_profile(torch, wd, gdir)
+        compact_cases, comp_hist_cases = phase_device_half(torch, wd, gdir)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     if cases_json:
         with open(cases_json, "w") as f:
-            json.dump({"exact_hist": [peaked] + hist_cases,
+            json.dump({"exact_hist": [peaked] + hist_cases + comp_hist_cases,
                        "scan_packed": scan_cases,
-                       "scan_packed_fused": fused_cases}, f, indent=1)
+                       "scan_packed_fused": fused_cases,
+                       "compact_hits": compact_cases}, f, indent=1)
+    # the compaction's headline: the sparse case at the (2048, 2030, 2)
+    # plane, the shape of the histogram's headline
+    compact_head = next(c for c in compact_cases if c["hits"]
+                        and "p < 1e-4" in c["label"])
     # each kernel at the shape its engine's main path gives it: the run
     # engine's plane of real CTCF scores, the window engine's region batch;
     # launches on each path, counted from 0 just before it
     print(json.dumps({"kernels": [
         _kernel_line("exact_hist", "grafimo_tpu_torch/csrc/hist.cu",
                      "grafimo_tpu/ops/pallas_hist.py:90", launches,
-                     [peaked] + hist_cases, peaked, {
+                     [peaked] + hist_cases + comp_hist_cases,
+                     comp_hist_cases[0], {
                          "run engine 10 Mbp, 1 device": launches,
                          "run engine 10 Mbp, 2 shards of cuda:0":
                              shard_launches,
@@ -1259,6 +1563,13 @@ def main() -> int:
                          "window engine, peak set": scan_launches,
                          "(4, 2) grid functions":
                              grid_launches["scan_packed"],
+                     }),
+        _kernel_line("compact_hits", "grafimo_tpu_torch/csrc/compact.cu",
+                     "grafimo_tpu/ops/score_runs.py:684", compactions,
+                     compact_cases, compact_head, {
+                         "run engine 10 Mbp, 1 device": compactions,
+                         "(4, 2) grid functions":
+                             grid_launches["compact_hits"],
                      }),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,8 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
-    os.path.join(_HERE, "csrc", name) for name in ("hist.cu", "scan_packed.cu")
+    os.path.join(_HERE, "csrc", name)
+    for name in ("hist.cu", "scan_packed.cu", "compact.cu")
 ]
 HEADERS = [os.path.join(_HERE, "csrc", "bins.cuh")]
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -130,6 +131,12 @@ def load() -> ctypes.CDLL:
                 c.c_void_p,
             ]
             lib.grafimo_scan_packed.restype = c.c_int
+            lib.grafimo_compact_hits.argtypes = [
+                c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_void_p,
+                c.c_void_p, c.c_void_p, c.c_int, c.c_void_p, c.c_int,
+                c.c_void_p, c.c_int, c.c_void_p,
+            ]
+            lib.grafimo_compact_hits.restype = c.c_int
             lib.grafimo_cuda_error_string.argtypes = [c.c_int]
             lib.grafimo_cuda_error_string.restype = c.c_char_p
             _LIB = lib

@@ -12,8 +12,10 @@ on its own block:
   by one, so nothing is padded);
 * PWM columns split the same way over ``motif``;
 * histograms are summed over ``data`` and concatenated over ``motif`` on
-  the host, in int64; hits come back as global ``(row, offset, column)``
-  rows in C order, and hit counts per motif column.
+  the host, in int64; each run-scan shard's hits are packed into hit
+  bits on its device (``ops/compact.py``), as the reference's are, and
+  come back as global ``(row, offset, column)`` rows in C order, with hit
+  counts per motif column.
 
 Every shard is launched before the first result is read back: reading a
 shard waits for its device, and a wait per shard would serialize the
@@ -26,11 +28,13 @@ import numpy as np
 import torch
 
 from grafimo_tpu_torch.device import split_rows
+from grafimo_tpu_torch.ops.compact import compact_hits
 from grafimo_tpu_torch.ops.score_runs import (
     genome_planes_to_device,
     pwm_lut_from_kernel,
     scan_runs_device,
     scan_runs_resident,
+    unpack_hitbits,
 )
 from grafimo_tpu_torch.ops.score_windows import (
     pwm_lut_from_flat,
@@ -116,13 +120,26 @@ def sharded_scan_step(grid: Grid, hist_size: int):
     return run
 
 
+def _shard_hits(scores, cutoffs):
+    """A shard's packed hit bits (``ops/compact.py``; the CUDA kernel on a
+    card), as the reference's shards return them; no indices."""
+    dev = scores.device
+    return compact_hits(
+        scores, torch.as_tensor(cutoffs, device=dev),
+        torch.empty(1, dtype=torch.int32, device=dev),
+        torch.empty(0, dtype=torch.int32, device=dev),
+    )
+
+
 def _merge(pending, hist_size: int, m: int):
-    """Host merge of ``(rows, cols, hist, hit)`` shard results."""
+    """Host merge of ``(rows, cols, hist, bits, noff)`` shard results."""
     hist = torch.zeros((hist_size, m), dtype=torch.int64)
     parts = [torch.zeros((0, 3), dtype=torch.int64)]
-    for rows, cols, h, hit in pending:
+    for rows, cols, h, bits, noff in pending:
         hist[:, cols] += h.cpu()
-        nz = torch.nonzero(hit).cpu()
+        nz = torch.from_numpy(
+            np.stack(np.nonzero(unpack_hitbits(bits.cpu().numpy(), noff)),
+                     axis=1).astype(np.int64))
         nz[:, 0] += rows.start
         nz[:, 2] += cols.start
         parts.append(nz)
@@ -153,14 +170,15 @@ def sharded_run_scan(grid: Grid, k: int, hist_size: int):
         cuts = np.asarray(cutoffs, dtype=np.int32)
         pending = []
         for dev, rows, cols in _shards(grid, packed.shape[0], m):
-            hist, hit = scan_runs_device(
+            hist, scores = scan_runs_device(
                 _put(packed, rows, dev), _put(nbits, rows, dev),
                 _put(vbits, rows, dev),
                 pwm_lut_from_kernel(pwm_kernel[:, :, cols], dev),
-                torch.as_tensor(mins[cols], device=dev),
-                torch.as_tensor(cuts[cols], device=dev), k, hist_size,
+                torch.as_tensor(mins[cols], device=dev), k, hist_size,
             )
-            pending.append((rows, cols, hist, hit))
+            pending.append((rows, cols, hist,
+                            _shard_hits(scores, cuts[cols]),
+                            scores.shape[1]))
         return _merge(pending, hist_size, m)
 
     return run
@@ -193,13 +211,14 @@ def sharded_resident_scan(grid: Grid, r: int, k: int, hist_size: int,
                 planes[str(dev)] = genome_planes_to_device(genome4, ngenome,
                                                            dev)
             g4, gn = planes[str(dev)]
-            hist, hit = scan_runs_resident(
+            hist, scores = scan_runs_resident(
                 g4, gn, _put(gstart, rows, dev), _put(vbits, rows, dev),
                 pwm_lut_from_kernel(pwm_kernel[:, :, cols], dev),
-                torch.as_tensor(mins[cols], device=dev),
-                torch.as_tensor(cuts[cols], device=dev), r, k, hist_size,
+                torch.as_tensor(mins[cols], device=dev), r, k, hist_size,
             )
-            pending.append((rows, cols, hist, hit))
+            pending.append((rows, cols, hist,
+                            _shard_hits(scores, cuts[cols]),
+                            scores.shape[1]))
         return _merge(pending, hist_size, m)
 
     return run

@@ -7,9 +7,10 @@ regions), as in the reference:
    of :mod:`grafimo_tpu_torch.native`) -- no window materialisation;
 2. :func:`scan_batches` streams the batches to one or more torch
    devices, each slice's rows split over them, where
-   ``ops/score_runs.py`` scores every stride-1 window on both strands,
-   histograms the integer scores (the CUDA kernel on a card) and returns
-   the hits;
+   ``ops/score_runs.py`` scores every stride-1 window on both strands
+   and histograms the integer scores over each column's reachable range,
+   and ``ops/compact.py`` compacts the hits (CUDA kernels on a card); the
+   host reads each device's hits once per flush block of slices;
 3. the host reconstructs metadata for hits only, computes exact p-values
    and exact BH q-values from the histogram, and assembles the report.
    In a multi-process run (``parallel/cluster.py``) the histograms are
@@ -50,6 +51,7 @@ from grafimo_tpu_torch.graph.sitegraph import SiteGraph
 from grafimo_tpu_torch.models.motif import Motif
 from grafimo_tpu_torch.models.pvalue import PvalueLookup
 from grafimo_tpu_torch.report.results import apply_report_filters, build_results_df
+from grafimo_tpu_torch.ops.compact import compact_hits
 from grafimo_tpu_torch.ops.qvalue import qvalues_from_histogram
 from grafimo_tpu_torch.device import split_rows
 from grafimo_tpu_torch.parallel import cluster
@@ -67,6 +69,7 @@ from grafimo_tpu_torch.ops.score_runs import (
     scan_runs_resident_patched,
     scan_runs_resident_spliced,
     scan_runs_resident_strided,
+    unpack_hitbits,
 )
 
 BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
@@ -90,6 +93,28 @@ MIN_PATCH_R = 64
 # the slicing-invariance tests.
 MAX_BASES_PER_DISPATCH = 1 << 24
 MAX_BASES_PER_DISPATCH_CPU = 1 << 19
+# on-device hit compaction (reference runscan.py:66-75,
+# ops/compact.py): a slice block's hit count and first SCAN_SMALLK hit
+# indices ride its device's flush read; a block with up to SCAN_TOPK hits
+# reads the rest of its indices, a denser one its packed hit bits
+SCAN_TOPK = 1 << 13
+SCAN_SMALLK = 1 << 10
+# slice blocks per device between two flush reads.  It bounds the hit
+# bits each device keeps until the read: a block's bits are rows * Noff *
+# M / 8 bytes, 4.2 MB for the main path's (8192, 2030, 2) blocks and at
+# most ~8.4 MB at any M (slices shrink by M // 4), so at most ~1.1 GB.
+SCAN_FLUSH_SLICES = 128
+
+# device->host reads of the scan since the last reset_reads(): "flush",
+# one per device and flush block (hit counts and first indices);
+# "indices", a block with more than SCAN_SMALLK hits; "bits", a block
+# with more than SCAN_TOPK; "hist", the histogram, once per device
+READS = {"flush": 0, "indices": 0, "bits": 0, "hist": 0}
+
+
+def reset_reads() -> None:
+    for key in READS:
+        READS[key] = 0
 
 
 def _dispatch_cap(device: torch.device) -> int:
@@ -855,13 +880,34 @@ def _genome_on(graph: SiteGraph, device: torch.device):
 
 @dataclass
 class _OnDevice:
-    """A device's copy of the scan parameters and its running histogram."""
+    """A device's copy of the scan parameters, its running histogram and
+    its flush block: row ``i`` of ``block`` holds the hit count and the
+    first ``SCAN_SMALLK`` hit indices of the ``i``-th slice block launched
+    on it since the last flush, copied into the host buffer ``host`` at
+    the flush."""
 
     lut: torch.Tensor
     mins: torch.Tensor
     cuts: torch.Tensor
     bases: torch.Tensor
     acc: torch.Tensor
+    block: torch.Tensor
+    host: torch.Tensor
+    used: int = 0
+
+
+@dataclass
+class _Pending:
+    """A launched slice block whose hits wait for its device's flush read:
+    its rows start at ``row0`` of ``batch``; ``more`` holds its hit
+    indices past ``SCAN_SMALLK``, ``bits`` its packed hit bits."""
+
+    batch: DeviceBatch
+    row0: int
+    on: _OnDevice
+    slot: int
+    more: torch.Tensor
+    bits: torch.Tensor
 
 
 def _as_devices(devices) -> List[torch.device]:
@@ -877,8 +923,8 @@ def _as_devices(devices) -> List[torch.device]:
 def _scan_block(batch: DeviceBatch, rows: slice, vb, strided: bool,
                 on: _OnDevice, dev: torch.device, k: int, comp_size: int):
     """One device's block of a slice through the batch's kind: ``(hist,
-    hit)`` on ``dev`` (``ops/score_runs.py``)."""
-    common = (on.lut, on.mins, on.cuts)
+    masked scores)`` on ``dev`` (``ops/score_runs.py``)."""
+    common = (on.lut, on.mins)
     if batch.gstart is None:
         nb = batch.nbits[rows]
         nb = _put(nb, dev) if nb.any() else None
@@ -942,23 +988,39 @@ def scan_batches(
     batch's kind of ``ops/score_runs.py`` as the reference routes it
     (``runscan.py:1471-1667``); a strided slice's blocks each start
     ``block_start * stride`` further into the genome (``:1116-1125``).
-    Each device keeps an int64 histogram, read back once at the end and
-    summed on the host; hit rows map back through ``lo + block_start +
-    row``.  A device may be listed more than once.
+
+    Each device keeps a compressed int64 histogram, read back once at the
+    end, expanded and summed on the host.  Hits are compacted on the
+    device (``ops/compact.py``, the CUDA kernel on a card) and nothing is
+    read per slice: every ``SCAN_FLUSH_SLICES`` slices, and once at the
+    end, the host reads each device's flush block in one copy, then each
+    block's hits by its tier (``SCAN_SMALLK``, ``SCAN_TOPK``; reference
+    ``:1427-1469, 1686-1710``).  Hit rows map back through ``lo +
+    block_start + row``.  A device may be listed more than once.
     """
     devs = _as_devices(devices)
+    smallk, topk, flush_slices = SCAN_SMALLK, SCAN_TOPK, SCAN_FLUSH_SLICES
     m = pwm_kernel.shape[-1]
-    # Histogram compression is off (ROADMAP A3): bases are 0, so device
-    # bin s + 1 holds score s and bin 0 stays empty -- what the reference
-    # runs on the CPU.  The remap and its expansion (_absorb_comp) are
-    # kept, so turning compression on is a change of bases alone.
-    hist_bases = np.zeros(m, np.int64)
-    hist_tops = np.full(m, hist_size - 1, np.int64)
+    # Exact per-column histogram compression (reference runscan.py:
+    # 1272-1349, without its gate on the TPU histogram kernel's column cap
+    # and compile cost): column c's window scores lie in [base_c, top_c],
+    # the sums of its PWM positions' minima and maxima, or are the N-window
+    # value min_scores[c].  Device bin 0 holds the N value and bin 1 + i
+    # the score base_c + i (ops/score_runs._finish_scores); _absorb_comp
+    # expands them.  PWM entries are integers, exact in f32.
+    pwm_np = np.asarray(pwm_kernel)
+    hist_bases = pwm_np.min(axis=1).sum(axis=0).astype(np.int64)
+    hist_tops = pwm_np.max(axis=1).sum(axis=0).astype(np.int64)
     hist_spans = hist_tops - hist_bases + 1
     comp_size = int(hist_spans.max()) + 1
+    repeats: Dict[str, int] = {}
+    for dev in devs:
+        repeats[str(dev)] = repeats.get(str(dev), 0) + 1
     on: Dict[str, _OnDevice] = {}
     for dev in devs:
         if str(dev) not in on:
+            # a slice puts one block on each listing of the device
+            slots = (flush_slices * repeats[str(dev)], 1 + smallk)
             on[str(dev)] = _OnDevice(
                 lut=pwm_lut_from_kernel(pwm_kernel, dev),
                 mins=_put(min_scores.astype(np.int32), dev),
@@ -966,6 +1028,9 @@ def scan_batches(
                 bases=_put(hist_bases.astype(np.int32), dev),
                 acc=torch.zeros((comp_size, m), dtype=torch.int64,
                                 device=dev),
+                block=torch.zeros(slots, dtype=torch.int32, device=dev),
+                host=torch.empty(slots, dtype=torch.int32,
+                                 pin_memory=dev.type == "cuda"),
             )
     mins_i64 = min_scores.astype(np.int64)
     hits: List[Tuple[Tuple[str, int], int, int]] = []
@@ -986,6 +1051,55 @@ def scan_batches(
                     "device histogram holds scores above the motif's "
                     "maximum possible score — device scoring fault"
                 )
+
+    pending: List[_Pending] = []
+
+    def _absorb_hits(p: _Pending) -> None:
+        """A block's hits from its flush row, by tier: the row's indices,
+        the row's and ``more``'s, or the packed bits (reference
+        ``runscan.py:1686-1710``).  The kernel writes indices in no fixed
+        order; sorting them gives the plain version's."""
+        row = p.on.host[p.slot].numpy()
+        n = int(row[0])
+        if n == 0:
+            return
+        noff = p.batch.R - k + 1
+        if n <= smallk:
+            flat = row[1 : 1 + n]
+        elif n <= topk:
+            READS["indices"] += 1
+            flat = np.concatenate(
+                [row[1:], p.more[: n - smallk].cpu().numpy()]
+            )
+        else:
+            READS["bits"] += 1
+            flat = np.flatnonzero(unpack_hitbits(p.bits.cpu().numpy(), noff))
+        rows, rem = np.divmod(np.sort(flat).astype(np.int64), noff * m)
+        offs, cols = np.divmod(rem, m)
+        for r, off, col in zip(rows.tolist(), offs.tolist(), cols.tolist()):
+            chunk = p.batch.chunks[p.row0 + r]
+            hits.append((chunk.source, chunk.chunk_off + off, col))
+
+    def _flush() -> None:
+        """One copy per device of its flush block into pinned host memory,
+        one wait, then every pending block's hits; their bits go."""
+        waits = []
+        for o in on.values():
+            if not o.used:
+                continue
+            o.host[: o.used].copy_(o.block[: o.used], non_blocking=True)
+            READS["flush"] += 1
+            if o.block.is_cuda:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(o.block.device))
+                waits.append(ev)
+        for ev in waits:
+            ev.synchronize()
+        for p in pending:
+            _absorb_hits(p)
+        pending.clear()
+        for o in on.values():
+            o.used = 0
 
     # rows per device and slice under the smallest device cap; a slice
     # takes that many rows for every device
@@ -1041,9 +1155,6 @@ def scan_batches(
                 and 2 * stride >= batch.R
                 and bool((np.diff(gs) == stride).all())
             )
-            # launch every block before reading any block's hits back:
-            # the read waits for its device
-            pending = []
             for dev, (b0, b1) in zip(devs, split_rows(hi - lo, len(devs))):
                 if b0 == b1:
                     continue
@@ -1051,17 +1162,24 @@ def scan_batches(
                 # clean blocks skip the mask upload and the masking
                 vb = batch.vbits[rows]
                 vb = None if (vb == full_row).all() else _put(vb, dev)
-                hist, hit = _scan_block(batch, rows, vb, strided,
-                                        on[str(dev)], dev, k, comp_size)
-                on[str(dev)].acc += hist
-                pending.append((rows.start, hit))
-            for row0, hit in pending:
-                for row, off, col in torch.nonzero(hit).cpu().tolist():
-                    chunk = batch.chunks[row0 + row]
-                    hits.append((chunk.source, chunk.chunk_off + off, col))
+                o = on[str(dev)]
+                hist, scores = _scan_block(batch, rows, vb, strided, o, dev,
+                                           k, comp_size)
+                o.acc += hist
+                slot = o.block[o.used]
+                more = torch.empty(max(0, topk - smallk), dtype=torch.int32,
+                                   device=dev)
+                bits = compact_hits(scores, o.cuts, slot[:1], slot[1:], more)
+                pending.append(_Pending(batch, rows.start, o, o.used, more,
+                                        bits))
+                o.used += 1
             slices_done += 1
+            if slices_done % flush_slices == 0:
+                _flush()
             _progress()
+    _flush()
     _absorb_comp(sum(o.acc.cpu().numpy() for o in on.values()))
+    READS["hist"] += len(on)
     if progress and sys.stderr.isatty():
         sys.stderr.write("\n")
     dt = time.perf_counter() - t0

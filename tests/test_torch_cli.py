@@ -85,6 +85,30 @@ def test_reports_byte_identical(input_dir, tmp_path, toy_bed, flow,
             == (tmp_path / "ref" / "top_graphs" / "x:0-20.dot").read_bytes()
 
 
+@pytest.mark.parametrize("engine", ["runs", "windows"])
+def test_multi_width_reports_byte_identical(input_dir, tmp_path, toy_bed,
+                                            engine, monkeypatch):
+    """``multi.meme`` (widths 19, 8 and 12: one scan pass per width, each
+    with its own histogram compression): every report file of the port
+    byte-identical to the reference's."""
+    monkeypatch.setenv("GRAFIMO_TPU_SINGLE_DEVICE", "1")
+    outs = {}
+    for name, main, extra in (("port", port_main, ["--device", "cpu"]),
+                              ("ref", ref_main, [])):
+        graphs = _build(main, input_dir, tmp_path / f"g_{name}")
+        assert main([
+            "findmotif", "-d", str(graphs), "-b", str(toy_bed),
+            "-m", str(input_dir / "multi.meme"), "-t", "1", "--recomb",
+            "--engine", engine, "-o", str(tmp_path / name), *extra,
+        ]) == 0
+        outs[name] = {
+            p.name: p.read_bytes() for p in (tmp_path / name).iterdir()
+            if p.suffix in (".tsv", ".gff")
+        }
+    assert len(outs["port"]) == 6  # a TSV and a GFF3 per motif
+    assert outs["port"] == outs["ref"]
+
+
 def _sorted_report(path):
     """A TSV report in the order ``tests/test_multi_motif.py:113-120``
     sorts both engines' reports before comparing them."""

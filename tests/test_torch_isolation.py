@@ -43,7 +43,7 @@ PORT_DIR = REPO / "grafimo_tpu_torch"
 COPIES = [
     "errors.py", "config.py",
     "utils/__init__.py", "utils/constants.py", "utils/misc.py",
-    "utils/sniff.py",
+    "utils/sniff.py", "utils/fetch.py",
     "io/__init__.py", "io/bed.py", "io/fasta.py", "io/vcf.py",
     "models/__init__.py", "models/background.py", "models/motif.py",
     "models/parse.py", "models/process.py", "models/pvalue.py",

@@ -28,6 +28,7 @@ import grafimo_tpu_torch.runscan as port_rs
 from grafimo_tpu_torch.device import split_rows
 from grafimo_tpu_torch.models.parse import load_motifs
 from grafimo_tpu_torch.models.pvalue import PvalueLookup
+from grafimo_tpu_torch.ops.compact import hit_mask
 from grafimo_tpu_torch.ops.encode import revcomp_codes
 from grafimo_tpu_torch.utils.constants import UNIF
 from tests.conftest import DATA
@@ -202,11 +203,12 @@ def test_sharded_resident_matches_reference(n, with_n):
     g4, gn = port_sr.genome_planes_to_device(
         args[0], args[1] if with_n else None, CPU)
     gstart, vbits, kernel, mins, cuts = args[-5:]
-    one_h, one_hit = port_sr.scan_runs_resident(
+    one_h, one_scores = port_sr.scan_runs_resident(
         g4, gn, torch.from_numpy(gstart), torch.from_numpy(vbits),
         port_sr.pwm_lut_from_kernel(kernel, CPU), torch.from_numpy(mins),
-        torch.from_numpy(cuts), r, k, hs)
+        r, k, hs)
     np.testing.assert_array_equal(hist.numpy(), one_h.numpy())
+    one_hit = hit_mask(one_scores, torch.from_numpy(cuts))
     np.testing.assert_array_equal(hits.numpy(), torch.nonzero(one_hit).numpy())
 
 

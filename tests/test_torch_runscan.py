@@ -365,3 +365,167 @@ def test_score_fault_raises_mismatch(input_dir, monkeypatch):
         port_rs.compute_results_runs([ctcf], rr, CPU, threshold=1.0,
                                      recomb=True)
     assert scans == [1]
+
+
+# ------------------------------------------------ compaction and its reads
+
+
+# (SCAN_SMALLK, SCAN_TOPK, SCAN_FLUSH_SLICES) of tests/test_runscan.py:107
+# and the reads each takes on the toy region's 12 one-row slices at -t 1:
+# every tier, over 12, 6 and 4 flush blocks
+FETCH_TIERS = [
+    ((2, 4, 1), {"flush": 12, "indices": 0, "bits": 11, "hist": 1}),
+    ((4, 64, 2), {"flush": 6, "indices": 11, "bits": 0, "hist": 1}),
+    ((1, 2, 3), {"flush": 4, "indices": 1, "bits": 11, "hist": 1}),
+]
+
+
+@pytest.mark.parametrize("tiers,reads", FETCH_TIERS)
+def test_runscan_fetch_tiers(input_dir, monkeypatch, tiers, reads):
+    """The port's counterpart of ``tests/test_runscan.py:99``: every hit
+    tier (indices in the flush read, the block's own indices, the packed
+    bits) across several flush blocks gives the reference's frames, and
+    the host reads once per flush block and dense block, never per
+    slice."""
+    from grafimo_tpu.graph.extract import extract_region
+    from grafimo_tpu.scan import compute_results
+
+    ref_ctcf = REF.load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1,
+                               False)[0]
+    ref_graph = _toy_graph(input_dir, REF)
+    want = compute_results(
+        ref_ctcf, [extract_region(ref_graph, 0, 50, 19, chrom_display="x")],
+        threshold=1.0, recomb=True,
+    )
+    want_runs = ref_rs.compute_results_runs(
+        [ref_ctcf], ref_rs.build_region_runs(ref_graph, "x", [(0, 50)], 19),
+        threshold=1.0, recomb=True,
+    )[ref_ctcf.motif_id]
+    for name, value in zip(("SCAN_SMALLK", "SCAN_TOPK", "SCAN_FLUSH_SLICES"),
+                           tiers):
+        monkeypatch.setattr(port_rs, name, value)
+    monkeypatch.setattr(port_rs, "MAX_BASES_PER_DISPATCH", 64)
+    ctcf = PORT.load_motifs(str(input_dir / "MA0139.1.meme"), UNIF, 0.1,
+                            False)[0]
+    rr = port_rs.build_region_runs(_toy_graph(input_dir), "x", [(0, 50)], 19)
+    port_rs.reset_reads()
+    got = port_rs.compute_results_runs([ctcf], rr, CPU, threshold=1.0,
+                                       recomb=True)[ctcf.motif_id]
+    assert port_rs.READS == reads
+    pd.testing.assert_frame_equal(got, want_runs, check_exact=True)
+
+    def canon(df):
+        return df.sort_values(
+            ["p-value", "start", "stop", "strand", "matched_sequence"]
+        ).reset_index(drop=True)
+
+    pd.testing.assert_frame_equal(canon(got), canon(want), check_exact=True)
+
+
+def test_scan_batches_devices_compress_and_compact(monkeypatch):
+    """``scan_batches`` over ``[cpu] * 3`` with small tiers, compressed
+    histograms and compacted hits == the reference's single-device scan;
+    one flush read per flush block (the three listings share one
+    device), never one per slice."""
+    monkeypatch.setattr(port_rs, "SCAN_SMALLK", 2)
+    monkeypatch.setattr(port_rs, "SCAN_TOPK", 8)
+    monkeypatch.setattr(port_rs, "SCAN_FLUSH_SLICES", 2)
+    monkeypatch.setattr(port_rs, "MAX_BASES_PER_DISPATCH", 256)
+    k = 11
+    motifs = [_motif(5, k), _motif(6, k)]
+    args = _scan_inputs(motifs, 0.05)
+    got_b = _mix_batches(port_rs, _mix_graph(), np.random.default_rng(9), k)
+    want_b = _mix_batches(ref_rs, _mix_graph(REF), np.random.default_rng(9), k)
+    port_rs.reset_reads()
+    got = port_rs.scan_batches(got_b, *args, [CPU] * 3)
+    want = ref_rs.scan_batches(want_b, *args)
+    np.testing.assert_array_equal(got.hists, want.hists)
+    assert sorted(got.hits) == sorted(want.hits) and len(got.hits) > 0
+    n_slices = sum(-(-len(b.chunks) // (3 * max(1, 256 // b.R)))
+                   for b in got_b)
+    assert port_rs.READS["flush"] == -(-n_slices // 2)
+    assert port_rs.READS["hist"] == 1
+    assert port_rs.READS["indices"] + port_rs.READS["bits"] > 0
+
+
+def _mixed_base_batch(mod, rng, k, b, r):
+    """A packed batch with N bases and invalid offsets, and a PWM whose
+    columns sit on different bases (``tests/test_hist_compress.py:36``)."""
+    m = 6
+    noff = r - k + 1
+    batch = mod.DeviceBatch(
+        R=r, packed=mod.pack_run_seqs(rng.integers(0, 4, (b, r))),
+        nbits=mod.pack_bits(rng.random((b, r)) < 0.02),
+        vbits=mod.pack_bits(rng.random((b, noff)) < 0.9),
+        chunks=[mod.RunChunk(("c:0-1", (0, i)), 0) for i in range(b)],
+    )
+    pwm = np.stack([rng.integers(0, 400, (k, 4)) + 100 * c for c in range(m)],
+                   axis=-1).astype(np.float32)
+    mins = pwm.reshape(-1, m).min(axis=0).astype(np.int32)
+    cuts = (pwm.max(axis=1).sum(axis=0) - 300).astype(np.int32)
+    return batch, pwm, mins, cuts
+
+
+def test_scan_batches_compressed_equals_full_histogram():
+    """The counterpart of ``tests/test_hist_compress.py``: the port always
+    counts each column over its reachable scores alone (bin 0 the N
+    value); expanded, the histogram is the reference's full one, N
+    windows and invalid offsets included, and so are the hits."""
+    k, b, r = 11, 16, 96
+    got_batch, pwm, mins, cuts = _mixed_base_batch(
+        port_rs, np.random.default_rng(3), k, b, r)
+    want_batch, *_ = _mixed_base_batch(ref_rs, np.random.default_rng(3), k,
+                                       b, r)
+    hist_size = 1000 * k + 1
+    got = port_rs.scan_batches([got_batch], pwm, mins, cuts, k, hist_size,
+                               CPU)
+    want = ref_rs.scan_batches([want_batch], pwm, mins, cuts, k, hist_size)
+    np.testing.assert_array_equal(got.hists, want.hists)
+    assert sorted(got.hits) == sorted(want.hits) and len(got.hits) > 0
+    for col in range(pwm.shape[-1]):  # N windows counted at min_score
+        assert got.hists[int(mins[col]), col] > 0
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_end_to_end_compressed_equals_reference(monkeypatch, seed):
+    """``tests/test_hist_compress.py:79``'s graphs and motifs: the port's
+    reports (compression always on) equal the reference's with its
+    compression forced and off."""
+    def setup(h):
+        rng = np.random.default_rng(seed)
+        seq = "".join(rng.choice(list("ACGT"), 700))
+        seq = seq[:100] + "NNNN" + seq[104:400] + "NN" + seq[402:]
+        records = []
+        for pos0 in sorted(rng.choice(np.arange(5, 690), 8, replace=False)):
+            pos0 = int(pos0)
+            if seq[pos0] == "N":
+                continue
+            alt = rng.choice([c for c in "ACGT" if c != seq[pos0]])
+            records.append(h.VcfRecord(
+                chrom="h", pos=pos0 + 1, ref=seq[pos0], alts=[alt],
+                gt=[int(rng.integers(0, 2)) for _ in range(4)]))
+        graph = h.build_graph("h", seq, records)
+        motifs = []
+        for mid in ("HC01", "HC02"):
+            counts = rng.integers(1, 50, (4, 9)).astype(np.float64)
+            motifs.append(h.process_motif(h.prepare_counts_motif(
+                h.Motif(motif_id=mid, motif_name=mid, counts=counts, width=9),
+                h.load_bg(UNIF, False), 0.1)))
+        return graph, motifs
+
+    graph, motifs = setup(PORT)
+    got = port_rs.compute_results_runs(
+        motifs, port_rs.build_region_runs(graph, "h", [(0, graph.length)], 9),
+        CPU, threshold=0.5, recomb=True)
+    graph, motifs = setup(REF)
+    for mode in ("force", "off"):
+        monkeypatch.setenv("GRAFIMO_HIST_COMPRESS", mode)
+        want = ref_rs.compute_results_runs(
+            motifs, ref_rs.build_region_runs(graph, "h", [(0, graph.length)],
+                                             9),
+            threshold=0.5, recomb=True)
+        assert list(got) == list(want)
+        for mid in want:
+            assert len(got[mid]) > 0
+            pd.testing.assert_frame_equal(got[mid], want[mid],
+                                          check_exact=True)

@@ -1,7 +1,9 @@
 """The port's five batch kinds (``grafimo_tpu_torch/ops/score_runs.py``)
 against the reference's jitted kernels on the same arrays: identical
-histograms and identical hit sets (tolerance 0, integers).  Also pins the
-host helpers the port copies to their originals."""
+histograms, and the port's masked scores compacted by
+``ops/compact.py`` into the reference's hit bits byte for byte (tolerance
+0, integers).  Also pins the host helpers the port copies to their
+originals."""
 
 import numpy as np
 import pytest
@@ -12,12 +14,13 @@ import jax.numpy as jnp
 import grafimo_tpu.ops.score_jax as ref_jax
 import grafimo_tpu.ops.score_runs as ref
 import grafimo_tpu_torch.ops.score_runs as port
+from grafimo_tpu_torch.ops import compact
 
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
-TOPK = 64  # the reference's compaction tier is not compared; hits come
-# from its exact hit bits
+TOPK = 64  # the reference's compaction capacity; its exact hit bits are
+# compared always
 
 
 def _t(x):
@@ -61,14 +64,21 @@ def _valid(rng, b, noff):
     return ref.pack_bits(v)
 
 
-def _compare(ref_out, port_out, noff):
-    h_ref, hb_ref = np.asarray(ref_out[0]), ref_out[1]
-    h_port, hit_port = port_out
+def _compare(ref_out, port_out, cuts, noff):
+    h_ref, hb_ref, nh_ref = np.asarray(ref_out[0]), ref_out[1], ref_out[2]
+    h_port, scores = port_out
     np.testing.assert_array_equal(h_port.numpy(), h_ref)
-    np.testing.assert_array_equal(
-        hit_port.numpy(), ref.unpack_hitbits(np.asarray(hb_ref), noff)
-    )
-    assert hit_port.any()  # the cutoffs are set so the case has hits
+    count = torch.zeros(1, dtype=torch.int32)
+    idx = torch.zeros(scores.numel(), dtype=torch.int32)
+    bits = compact.compact_hits(scores, _t(cuts), count, idx)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(hb_ref))
+    want = np.flatnonzero(ref.unpack_hitbits(np.asarray(hb_ref), noff))
+    assert int(count) == len(want) > 0  # the cutoffs give the case hits
+    np.testing.assert_array_equal(idx[: len(want)].numpy(), want)
+    if int(nh_ref) <= TOPK:  # the reference compacted: same indices
+        assert int(nh_ref) == len(want)
+        np.testing.assert_array_equal(
+            np.asarray(ref_out[3])[: len(want)] - 1, want)
 
 
 # (kind, k, R, M, B, masks, remap)
@@ -102,7 +112,7 @@ def test_batch_kind_matches_reference(kind, k, R, M, B, masks, remap):
     jb = None if bases is None else jnp.asarray(bases)
     tb = _t(bases)
     common_ref = (pwm, mins, cuts)
-    common_port = (lut, _t(mins), _t(cuts))
+    common_port = (lut, _t(mins))
     if kind == "packed":
         rows = rng.integers(0, 4, (B, R)).astype(np.uint8)
         nrows = rng.random((B, R)) < 0.02
@@ -169,7 +179,7 @@ def test_batch_kind_matches_reference(kind, k, R, M, B, masks, remap):
                     pg4, pgn, _t(gstart), _t(splice), _t(patches), _t(vb),
                     *common_port, R, k, hs, hist_bases=tb,
                 )
-    _compare(r_out, p_out, noff)
+    _compare(r_out, p_out, cuts, noff)
 
 
 def test_pwm_lut_from_kernel():
@@ -228,3 +238,41 @@ def test_strided_span_past_plane_raises():
     words = torch.zeros(8, dtype=torch.int64)
     with pytest.raises(RuntimeError, match="exceeds the resident plane"):
         port._decode_span(words, 100, 64, 2)
+
+
+def test_compressed_hist_expands_to_full():
+    """``tests/test_hist_compress.py:21`` on the port's packed kind: the
+    histogram over per-column bases (columns on different bases, N
+    windows, invalid offsets), expanded as ``runscan._absorb_comp``
+    expands it, is the reference's full-range histogram."""
+    rng = np.random.default_rng(3)
+    k, m, b, r = 11, 6, 16, 96
+    noff = r - k + 1
+    packed = ref.pack_run_seqs(rng.integers(0, 4, (b, r)))
+    nbits = ref.pack_bits(rng.random((b, r)) < 0.02)
+    vbits_raw = rng.random((b, noff)) < 0.9
+    vbits = ref.pack_bits(vbits_raw)
+    pwm = np.stack([rng.integers(0, 400, (k, 4)) + 100 * c for c in range(m)],
+                   axis=-1).astype(np.float32)
+    bases = pwm.min(axis=1).sum(axis=0).astype(np.int64)
+    tops = pwm.max(axis=1).sum(axis=0).astype(np.int64)
+    comp_size = int((tops - bases).max()) + 2
+    mins = pwm.reshape(-1, m).min(axis=0).astype(np.int32)
+    cuts = np.full(m, 10**9, np.int32)
+    hist_size = int(tops.max()) + 1
+    full = np.asarray(ref.scan_runs_device_topk(
+        jnp.zeros((hist_size, m), jnp.int32), packed, nbits, vbits, pwm,
+        mins, cuts, k, hist_size, 64)[0])
+    comp, _ = port.scan_runs_device(
+        _t(packed), _t(nbits), _t(vbits), port.pwm_lut_from_kernel(pwm, CPU),
+        _t(mins), k, comp_size, hist_bases=_t(bases.astype(np.int32)))
+    comp = comp.numpy()
+    expanded = np.zeros_like(full)
+    for col in range(m):
+        b0, sp = int(bases[col]), int(tops[col] - bases[col] + 1)
+        expanded[int(mins[col]), col] += comp[0, col]
+        expanded[b0 : b0 + sp, col] += comp[1 : 1 + sp, col]
+        assert not comp[1 + sp :, col].any()
+    np.testing.assert_array_equal(expanded, full)
+    assert comp[0].sum() > 0  # N windows in bin 0
+    assert expanded.sum() == vbits_raw.sum() * m
