@@ -4,7 +4,9 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order (phase 14 runs right after phase 5, whose chromosome
+it needs, before any phase that profiles); any failure raises and the
+script exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name and power limit,
    pandas, and the port's C++ engine (built with g++ on first use);
@@ -66,21 +68,34 @@ Phases, in order; any failure raises and the script exits non-zero:
     version at compressed bin counts (each column's reachable scores) for
     k in {8, 19, 70} and M in {2, 16, 40}, and on phase 3's peaked plane;
     ``multi.meme`` (widths 19, 8, 12) on phase 5's pocket region, cuda
-    reports byte-identical to cpu ones.
+    reports byte-identical to cpu ones; the histogram kernel's remap on
+    load (``bases``) at the same compressed bin counts;
+14. the run engine's scoring core, ``csrc/scan_runs.cu``, against its
+    plain version, bit for bit, for all five batch kinds: the main path's
+    block (8192 rows of R = 2048 of phase 5's chromosome with seeded N
+    runs, real CTCF forward and reverse complement), R = 64 and 256 with
+    4-slot patches, k in {8, 30, 70}, M in {16, 40}, a clean block, LUT
+    entries at 1020 and a LUT tiled over columns; empty, full and
+    repeated patch slots, negative splice shifts, an unused pair before a
+    used one, a patch over an N base, an all-invalid row.  The
+    ``conv1d`` yardstick (TF32 off) equals each once masked.
 
 Phase 5's whole-chromosome run and phase 9's scans also check the
 device->host reads (``runscan.READS``): one per device and flush block of
 slices, one per block denser than the flush read's index tier, and one
-histogram read per device, never one per slice; and one compaction launch
-per histogram launch.
+histogram read per device, never one per slice; and one scoring and one
+compaction launch per histogram launch, no plain version (phases 4, 10,
+11 and 12 too: a slice block is three launches).
 
 Each kernel case prints its time as the median of 10 single launches and
 as the mean of 100 back-to-back launches (CUDA events), its device time
 per launch (``torch.profiler``), the plain version's time, the time of
 one PyTorch call computing the same function where there is one
 (``torch.bincount`` for the histogram, ``torch.nonzero`` of the hit
-predicate for the compaction), and its bound: the bytes the function
-must move over the card's 3.35 TB/s.
+predicate for the compaction, ``conv1d`` of the one-hot rows for the
+scoring core), and its bound: the bytes the function must move over the
+card's 3.35 TB/s, or its integer adds over 67 T/s where those take
+longer.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -286,21 +301,25 @@ def _hist_bound_ms(s, hist_size):
     return (s.numel() * 4 + hist_size * m * 4) / HBM_BYTES_PER_S * 1e3
 
 
-def _check_hist_case(torch, label, s, hist_size):
-    """Kernel vs plain, bit for bit, then the case's timings."""
+def _check_hist_case(torch, label, s, hist_size, bases=None):
+    """Kernel vs plain, bit for bit, then the case's timings; ``bases``:
+    the kernel's remap on load (``torch.bincount`` then counts the
+    remapped plane)."""
     from grafimo_tpu_torch.ops import hist
 
-    got = hist.exact_hist(s, hist_size)
-    want = hist.exact_hist_reference(s, hist_size)
+    got = hist.exact_hist(s, hist_size, bases)
+    want = hist.exact_hist_reference(s, hist_size, bases)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
     if err or not torch.equal(got, want):
         raise RuntimeError(f"kernel != plain at {label}: max err {err}")
     del got, want
-    t = _timings(torch, lambda: hist.exact_hist(s, hist_size),
+    t = _timings(torch, lambda: hist.exact_hist(s, hist_size, bases),
                  "exact_hist_kernel",
-                 plain=lambda: hist.exact_hist_reference(s, hist_size),
-                 library=_bincount_call(torch, s, hist_size))
+                 plain=lambda: hist.exact_hist_reference(s, hist_size, bases),
+                 library=_bincount_call(
+                     torch, s if bases is None else hist.remap(s, bases),
+                     hist_size))
     bound = _hist_bound_ms(s, hist_size)
     log(f"exact_hist vs plain [{label}] shape {tuple(s.shape)} bins "
         f"{hist_size}: bit-identical, max_abs_err 0; {_fmt(t, bound)}")
@@ -462,6 +481,7 @@ def phase_cuda_vs_cpu(torch):
     import numpy as np
 
     import grafimo_tpu_torch.runscan as rb
+    from grafimo_tpu_torch.ops import score_runs as sr
 
     rng = np.random.default_rng(SEED)
     length = 400_000
@@ -477,12 +497,20 @@ def phase_cuda_vs_cpu(torch):
     mins = lo.astype(np.int32)
     cuts = (lo + 0.8 * (hi - lo)).astype(np.int32)
     results = {}
+    scans = {}
     for dev in ("cuda", "cpu"):
         batches = _mix(rb, graph, np.random.default_rng(SEED + 1), k)
+        sr.reset_counts()
         t0 = time.perf_counter()
         res = rb.scan_batches(batches, pwm, mins, cuts, k, 1000 * k + 1,
                               torch.device(dev))
         results[dev] = (res, time.perf_counter() - t0)
+        scans[dev] = dict(sr.COUNTS)
+    if (scans["cuda"]["kernel"] <= 0 or scans["cuda"]["plain"]
+            or scans["cpu"] != {"kernel": 0,
+                                "plain": scans["cuda"]["kernel"]}):
+        raise RuntimeError(f"five-kind mix: scan_runs counts {scans}, want "
+                           f"the kernel on cuda and the plain version on cpu")
     (gc, tc), (cc, tcpu) = results["cuda"], results["cpu"]
     if not np.array_equal(gc.hists, cc.hists):
         raise RuntimeError("port cuda != port cpu: histograms differ")
@@ -492,7 +520,8 @@ def phase_cuda_vs_cpu(torch):
         raise RuntimeError("five-kind mix produced no windows or no hits")
     log(f"five-kind mix: port cuda == port cpu ({int(gc.hists.sum())} "
         f"window-strands, {len(gc.hits)} hits; cuda {tc:.2f}s, "
-        f"cpu {tcpu:.2f}s host wall)")
+        f"cpu {tcpu:.2f}s host wall; {scans['cuda']['kernel']} scan_runs.cu "
+        f"launches on cuda, its plain version on cpu)")
 
 
 def _findmotif(argv):
@@ -550,6 +579,7 @@ def _n_slices(batches, m, n_devices):
 def phase_main_path(torch, wd):
     import grafimo_tpu_torch.runscan as rb
     from grafimo_tpu_torch.ops import compact, hist
+    from grafimo_tpu_torch.ops import score_runs as sr
     from grafimo_tpu_torch.workflows import load_graph_file
 
     out, dt = run_checked(
@@ -571,6 +601,7 @@ def phase_main_path(torch, wd):
     whole = os.path.join(wd, "whole.bed")
     with open(whole, "w") as f:
         f.write(f"chr21\t0\t{synth['length']}\n")
+    sr.reset_counts()
     hist.reset_counts()
     compact.reset_counts()
     rb.reset_reads()
@@ -578,6 +609,7 @@ def phase_main_path(torch, wd):
         "findmotif", "-d", gdir, "-b", whole, "-m", MOTIF, "-t", "1e-4",
         "-o", os.path.join(wd, "out_whole"), "--verbose", "--device", "cuda",
     ])
+    scans = dict(sr.COUNTS)
     launches = dict(hist.COUNTS)
     compactions = dict(compact.COUNTS)
     reads = dict(rb.READS)
@@ -587,6 +619,9 @@ def phase_main_path(torch, wd):
             or compactions["plain"] != 0):
         raise RuntimeError(f"main path did not compact every block on the "
                            f"kernel: {compactions}, {launches}")
+    if scans != {"kernel": launches["kernel"], "plain": 0}:
+        raise RuntimeError(f"main path did not score every block on the "
+                           f"kernel: scan_runs {scans}, hist {launches}")
     graph = load_graph_file(os.path.join(gdir, "21.gvt.npz"))
     batches = rb.batch_runs(rb.build_region_runs(
         graph, "21", [(0, synth["length"])], 19), 19)
@@ -609,6 +644,7 @@ def phase_main_path(torch, wd):
         f"{windows / scan_s:.0f} windows/strand/s, peak RSS {rss_gb:.2f} GB "
         f"(whole smoke process), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"scoring kernel launches {scans['kernel']}, plain {scans['plain']}; "
         f"histogram kernel launches {launches['kernel']}, plain "
         f"{launches['plain']}; compaction kernel launches "
         f"{compactions['kernel']}, plain {compactions['plain']}; {slices} "
@@ -633,7 +669,8 @@ def phase_main_path(torch, wd):
     if reports["cuda"][0] != reports["cpu"][0]:
         raise RuntimeError("1 Mbp pocket region: cuda and cpu TSVs differ")
     log("1 Mbp pocket region: cuda TSV byte-identical to cpu TSV")
-    return launches["kernel"], compactions["kernel"], gdir, synth, batches
+    return (launches["kernel"], compactions["kernel"], scans["kernel"], gdir,
+            synth, batches)
 
 
 def _random_packed(torch, b, k, m, gen, flag_frac=0.0, high=1001):
@@ -985,6 +1022,7 @@ def phase_multi_device(torch, wd, gdir, batches):
 
     import grafimo_tpu_torch.runscan as rb
     from grafimo_tpu_torch.ops import compact, hist
+    from grafimo_tpu_torch.ops import score_runs as sr
 
     params = _ctcf_scan_inputs()
     one = [torch.device("cuda", 0)]
@@ -998,18 +1036,24 @@ def phase_multi_device(torch, wd, gdir, batches):
     results = {}
     launches = {}
     reads = {}
+    def on_kernels(what):
+        """Every block scored, counted and compacted on the kernels."""
+        n = hist.COUNTS["kernel"]
+        if (n <= 0 or hist.COUNTS["plain"]
+                or compact.COUNTS != {"kernel": n, "plain": 0}
+                or sr.COUNTS != {"kernel": n, "plain": 0}):
+            raise RuntimeError(f"{what} did not run on the kernels: "
+                               f"{dict(sr.COUNTS)}, {dict(hist.COUNTS)}, "
+                               f"{dict(compact.COUNTS)}")
+
     for name in order:
+        sr.reset_counts()
         hist.reset_counts()
         compact.reset_counts()
         rb.reset_reads()
         res = rb.scan_batches(batches, *params, configs[name])
         seconds[name].append(res.scoring_time)
-        if (hist.COUNTS["kernel"] <= 0 or hist.COUNTS["plain"]
-                or compact.COUNTS != {"kernel": hist.COUNTS["kernel"],
-                                      "plain": 0}):
-            raise RuntimeError(f"10 Mbp scan on {name} did not run on the "
-                               f"kernels: {dict(hist.COUNTS)}, "
-                               f"{dict(compact.COUNTS)}")
+        on_kernels(f"10 Mbp scan on {name}")
         launches[name] = hist.COUNTS["kernel"]
         devs = configs[name]
         reads[name] = _check_reads(
@@ -1026,27 +1070,26 @@ def phase_multi_device(torch, wd, gdir, batches):
     log(f"{SMOKE_MBP} Mbp scan_batches, {len(batches)} batches, "
         f"{int(want.hists.sum())} window-strands, {len(want.hits)} hits: "
         + "; ".join(f"{name}: scan {', '.join(f'{t:.3f}' for t in ts)} s, "
-                    f"{launches[name]} hist.cu and compact.cu launches, "
+                    f"{launches[name]} scan_runs.cu, hist.cu and compact.cu "
+                    f"launches, "
                     f"{reads[name]}"
                     for name, ts in seconds.items())
         + "; histograms and hits identical")
     out = os.path.join(wd, "out_whole_2shards")
+    sr.reset_counts()
     hist.reset_counts()
     compact.reset_counts()
     text, wall = _entry_findmotif([
         "findmotif", "-d", gdir, "-b", os.path.join(wd, "whole.bed"),
         "-m", MOTIF, "-t", "1e-4", "-o", out, "--verbose"], one * 2)
     entry_launches = dict(hist.COUNTS)
-    if (entry_launches["kernel"] <= 0 or entry_launches["plain"]
-            or compact.COUNTS != {"kernel": entry_launches["kernel"],
-                                  "plain": 0}):
-        raise RuntimeError(f"2-shard findmotif did not run on the kernels: "
-                           f"{entry_launches}, {dict(compact.COUNTS)}")
+    on_kernels("2-shard findmotif")
     _same_report(out, os.path.join(wd, "out_whole"), "2-shard findmotif")
     m = re.search(r"run scan: .*\(([\d.]+)s\)", text)
     log(f"whole-chromosome findmotif on 2 shards of cuda:0: scan "
-        f"{m.group(1) if m else 'n/a'} s, wall {wall:.2f}s, hist.cu and "
-        f"compact.cu launches {entry_launches['kernel']}; TSV and GFF3 "
+        f"{m.group(1) if m else 'n/a'} s, wall {wall:.2f}s, scan_runs.cu, "
+        f"hist.cu and compact.cu launches {entry_launches['kernel']}; TSV "
+        f"and GFF3 "
         f"byte-identical to the 1-device run")
     return entry_launches["kernel"]
 
@@ -1076,18 +1119,21 @@ def phase_grid(torch):
          np.zeros(r, np.uint8)]))
     lut = sr.pwm_lut_from_kernel(kernel, dev)
     t_mins, t_cuts = (torch.as_tensor(x, device=dev) for x in (mins, cuts))
-    launches = {"exact_hist": 0, "scan_packed": 0, "compact_hits": 0}
+    launches = {"exact_hist": 0, "scan_packed": 0, "compact_hits": 0,
+                "scan_runs": 0}
 
     def counted(fn, *args):
         hist.reset_counts()
         scan_packed.reset_counts()
         compact.reset_counts()
+        sr.reset_counts()
         out = fn(*args)
         launches["exact_hist"] += hist.COUNTS["kernel"]
         launches["scan_packed"] += scan_packed.COUNTS["kernel"]
         launches["compact_hits"] += compact.COUNTS["kernel"]
+        launches["scan_runs"] += sr.COUNTS["kernel"]
         if (hist.COUNTS["plain"] or scan_packed.COUNTS["plain"]
-                or compact.COUNTS["plain"]):
+                or compact.COUNTS["plain"] or sr.COUNTS["plain"]):
             raise RuntimeError("a grid function ran a plain version on the "
                                "card")
         return out
@@ -1143,10 +1189,12 @@ def phase_grid(torch):
 RANK_PROG = BLOCK_JAX + (
     "import json\n"
     "from grafimo_tpu_torch.cli import main\n"
-    "from grafimo_tpu_torch.ops import compact, hist\n"
+    "from grafimo_tpu_torch.ops import compact, hist, score_runs\n"
     "rc = main(sys.argv[1:])\n"
     "print(json.dumps({'hist_launches': hist.COUNTS['kernel'], "
     "'hist_plain': hist.COUNTS['plain'], "
+    "'scan_launches': score_runs.COUNTS['kernel'], "
+    "'scan_plain': score_runs.COUNTS['plain'], "
     "'compact_launches': compact.COUNTS['kernel'], "
     "'compact_plain': compact.COUNTS['plain']}))\n"
     "sys.exit(rc)\n"
@@ -1219,11 +1267,14 @@ def phase_two_processes(torch, wd, gdir):
         parts = []
         for rank, out in enumerate(outs):
             counts = json.loads(out.strip().splitlines()[-1])
-            if counts["hist_plain"] or counts["compact_plain"]:
+            if (counts["hist_plain"] or counts["compact_plain"]
+                    or counts["scan_plain"]):
                 raise RuntimeError(f"rank {rank} ran a plain version")
-            if counts["compact_launches"] != counts["hist_launches"]:
+            if not (counts["compact_launches"] == counts["scan_launches"]
+                    == counts["hist_launches"]):
                 raise RuntimeError(f"rank {rank}: {counts}, want one "
-                                   f"compaction per histogram launch")
+                                   f"scoring and one compaction launch per "
+                                   f"histogram launch")
             launches += counts["hist_launches"]
             scan = re.search(r"run scan: .*\(([\d.]+)s\)", out)
             coll = re.search(r"cluster: rank \d/2, histogram all-reduce "
@@ -1248,15 +1299,20 @@ def phase_profile(torch, wd, gdir):
     trace exists and names the histogram kernel, and the report is phase
     8's."""
     from grafimo_tpu_torch.ops import hist
+    from grafimo_tpu_torch.ops import score_runs as sr
 
     pdir = os.path.join(wd, "profile")
     out = os.path.join(wd, "out_profiled")
     hist.reset_counts()
+    sr.reset_counts()
     _, wall = _findmotif([
         "findmotif", "-d", gdir, "-b", os.path.join(wd, "peaks.bed"),
         "-m", MOTIF, "-t", "1e-4", "-o", out, "--device", "cuda",
         "--profile", pdir])
     launches = hist.COUNTS["kernel"]
+    if sr.COUNTS != {"kernel": launches, "plain": 0}:
+        raise RuntimeError(f"--profile run: scan_runs {dict(sr.COUNTS)}, "
+                           f"{launches} histogram launches")
     trace = os.path.join(pdir, "grafimo_rank0.pt.trace.json")
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
@@ -1264,9 +1320,9 @@ def phase_profile(torch, wd, gdir):
                if "exact_hist_kernel" in str(e.get("name", ""))]
     if not kernels:
         raise RuntimeError(f"{trace} names no exact_hist_kernel")
-    if not any("compact_hits_kernel" in str(e.get("name", ""))
-               for e in events):
-        raise RuntimeError(f"{trace} names no compact_hits_kernel")
+    for name in ("compact_hits_kernel", "scan_runs_kernel"):
+        if not any(name in str(e.get("name", "")) for e in events):
+            raise RuntimeError(f"{trace} names no {name}")
     _same_report(out, os.path.join(wd, "out_peaks_runs_cuda"),
                  "--profile run")
     log(f"--profile: {trace} ({os.path.getsize(trace)} bytes, "
@@ -1402,9 +1458,10 @@ def _compressed(s, bases, tops):
     count."""
     import torch
 
+    from grafimo_tpu_torch.ops.hist import remap
+
     comp_size = int((tops - bases).max()) + 2
-    h = torch.where(s < 0, -1, torch.clamp(s - bases + 1, min=0))
-    return h.to(torch.int32).contiguous(), comp_size
+    return remap(s, bases).to(torch.int32).contiguous(), comp_size
 
 
 def phase_device_half(torch, wd, gdir):
@@ -1444,6 +1501,10 @@ def phase_device_half(torch, wd, gdir):
     hist_cases.append(_check_hist_case(
         torch, "peaked: real CTCF scores, main path B=R=2048 k=19 M=2, "
         "compressed", h, comp_size))
+    hist_cases.append(_check_hist_case(
+        torch, "peaked: real CTCF scores, main path B=R=2048 k=19 M=2, "
+        "remapped on load", s.contiguous(), comp_size,
+        bases.to(torch.int32)))
     del s, h
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     for k_, m in [(k_, m) for k_ in (8, 19, 70) for m in (2, 16, 40)]:
@@ -1457,6 +1518,9 @@ def phase_device_half(torch, wd, gdir):
                 else " (column groups)" if m * comp_size > block else "")
         hist_cases.append(_check_hist_case(
             torch, f"compressed, k={k_} M={m}{path}", h, comp_size))
+        hist_cases.append(_check_hist_case(
+            torch, f"remapped on load, k={k_} M={m}{path}", s.contiguous(),
+            comp_size, b_r.to(torch.int32)))
         del lut_r, codes, s, invalid, h
     torch.cuda.empty_cache()
 
@@ -1486,6 +1550,282 @@ def phase_device_half(torch, wd, gdir):
     return compact_cases, hist_cases
 
 
+KINDS = ("packed", "gathered", "strided", "patched", "spliced")
+# int32 adds outside the tensor cores: an H100 SM issues 64 a clock against
+# 128 float32 FMAs, so a quarter of the data sheet's 67 TFLOP/s float32
+# rate (2 flops an FMA; 132 SMs at 1.98 GHz)
+INT32_ADDS_PER_S = 67e12 / 4
+SMEM_BYTES_PER_S = 132 * 128 * 1.755e9  # 128 B a clock per SM
+
+
+def _words_read(plane, starts, r, bits):
+    """Bytes of a resident word plane that rows of ``r`` bases from
+    ``starts`` cover, each word counted once however many rows share it."""
+    import numpy as np
+
+    per = 32 // bits
+    n = plane.shape[0]
+    cover = np.zeros(n + 1, np.int64)
+    np.add.at(cover, np.minimum(starts // per, n), 1)
+    np.add.at(cover, np.minimum((starts + r - 1) // per + 1, n), -1)
+    return int((np.cumsum(cover[:n]) > 0).sum()) * plane.element_size()
+
+
+def _scan_runs_genome(torch, wd, rng):
+    """Phase 5's chromosome with seeded N runs written into it (the
+    synthetic chromosome has none): its codes and N mask on the host, and
+    the run engine's resident word planes of it on the card."""
+    import types
+
+    import numpy as np
+
+    import grafimo_tpu_torch.runscan as rb
+    from grafimo_tpu_torch.ops.score_runs import genome_planes_to_device
+
+    with open(os.path.join(wd, "ref.fa"), "rb") as f:
+        f.readline()
+        seq = np.frombuffer(f.read().replace(b"\n", b""), np.uint8).copy()
+    for start in rng.integers(0, len(seq) - 64, 2000):
+        seq[start : start + int(rng.integers(1, 20))] = ord("N")
+    table = np.zeros(256, np.uint8)
+    table[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    planes = rb._resident_genome(
+        types.SimpleNamespace(seq=seq.tobytes().decode("ascii")))
+    return (table[seq], seq == ord("N"),
+            *genome_planes_to_device(*planes, torch.device("cuda")))
+
+
+def _kind_batch(torch, kind, genome, b, r, k, rng, masks=True, n_slots=16):
+    """A seeded slice block of ``kind`` over ``genome`` (from
+    :func:`_scan_runs_genome`) as the five ``scan_runs_*`` functions, their
+    plain versions and the kernel's launch take it.  Rows of real
+    chromosome; with ``masks``, the N plane and validity bits (row 0 all
+    valid, the last row all invalid).  Patches: row 0 empty, row 1 full,
+    row 2 one over a genome N, the others 0 to ``n_slots`` slots, slots
+    may repeat a position (the later wins).  Splice: rows 0 and 2 unused,
+    the others one or two pairs with shifts of either sign, every third
+    an unused pair before a used one."""
+    import numpy as np
+
+    from grafimo_tpu_torch.ops import score_runs as sr
+
+    codes, nmask, g4, gn = genome
+    dev = torch.device("cuda")
+    length = len(codes)
+    noff = r - k + 1
+    if kind == "strided":
+        b = min(b, (length - r) // noff)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    vb = None
+    if masks:
+        v = rng.random((b, noff)) < 0.95
+        v[0] = True
+        v[-1] = False
+        vb = put(sr.pack_bits(v))
+    else:
+        gn = None
+    if kind == "packed":
+        idx = rng.integers(0, length - r, b)[:, None] + np.arange(r)
+        packed = put(sr.pack_run_seqs(codes[idx]))
+        nbits = put(sr.pack_bits(nmask[idx])) if masks else None
+        return dict(
+            b=b, r=r, vb=vb, head=(packed, nbits, vb), tail=(k,), source=0,
+            rows=dict(packed=packed, nbits=nbits),
+            fn=sr.scan_runs_device, plain=sr.scan_runs_device_reference,
+            expand=lambda: sr.rows_packed(packed, nbits))
+    if kind == "strided":
+        lo = int(rng.integers(0, length - b * noff - r + 1))
+        return dict(
+            b=b, r=r, vb=vb, head=(g4, gn, lo, vb), tail=(b, noff, r, k),
+            source=2, rows=dict(genome=g4, ngenome=gn, lo=lo, stride=noff),
+            fn=sr.scan_runs_resident_strided,
+            plain=sr.scan_runs_resident_strided_reference,
+            expand=lambda: sr.rows_strided(g4, gn, lo, b, noff, r))
+    gstart = rng.integers(0, length - r, b).astype(np.int32)
+    npos = np.flatnonzero(nmask)
+    gstart[2] = npos[(npos >= 100) & (npos < length - r)][0] - 100
+    gs = put(gstart)
+    if kind == "gathered":
+        return dict(
+            b=b, r=r, vb=vb, head=(g4, gn, gs, vb), tail=(r, k), source=1,
+            rows=dict(genome=g4, ngenome=gn, gstart=gs),
+            fn=sr.scan_runs_resident, plain=sr.scan_runs_resident_reference,
+            expand=lambda: sr.rows_resident(g4, gn, gs, r))
+    used = np.arange(n_slots)[None, :] < rng.integers(0, n_slots + 1,
+                                                      (b, 1))
+    used[0], used[1], used[2] = False, True, np.arange(n_slots) == 0
+    ent = rng.integers(0, r, (b, n_slots)) * 4 + rng.integers(0, 4,
+                                                              (b, n_slots))
+    ent[2, 0] = 100 * 4 + 1
+    pt = put(np.where(used, ent, -1).astype(np.int16))
+    if kind == "patched":
+        return dict(
+            b=b, r=r, vb=vb, head=(g4, gn, gs, pt, vb), tail=(r, k),
+            source=1, rows=dict(genome=g4, ngenome=gn, gstart=gs,
+                                patches=pt),
+            fn=sr.scan_runs_resident_patched,
+            plain=sr.scan_runs_resident_patched_reference,
+            expand=lambda: sr.rows_patched(g4, gn, gs, pt, r))
+    bounds = np.sort(rng.integers(2, r - 2, (b, 2)), axis=1)
+    shifts = rng.integers(-40, 41, (b, 2))
+    pairs = np.stack([bounds, shifts], axis=2).reshape(b, 4)
+    splice = np.full((b, 4), 0x7FFF, np.int64)
+    one = rng.random(b) < 0.5
+    splice[~one] = pairs[~one]
+    first = one & (np.arange(b) % 3 != 0)
+    splice[first, :2] = pairs[first, :2]
+    last = one & (np.arange(b) % 3 == 0)
+    splice[last, 2:] = pairs[last, :2]
+    splice[[0, 2]] = 0x7FFF
+    sp = put(splice.astype(np.int16))
+    return dict(
+        b=b, r=r, vb=vb, head=(g4, gn, gs, sp, pt, vb), tail=(r, k),
+        source=1, rows=dict(genome=g4, ngenome=gn, gstart=gs, patches=pt,
+                            splice=sp, clear_n=True),
+        fn=sr.scan_runs_resident_spliced,
+        plain=sr.scan_runs_resident_spliced_reference,
+        expand=lambda: sr.rows_spliced(g4, gn, gs, sp, pt, r))
+
+
+def _scan_runs_case(torch, label, batch, lut, mins):
+    """The scoring-core kernel against its plain version on one block, bit
+    for bit, through the dispatching function and the bare launch; the
+    ``conv1d`` yardstick (one-hot rows built outside the timed call, TF32
+    off) equal to it once masked; then the case's timings and bounds."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from grafimo_tpu_torch.ops import score_runs as sr
+
+    b, r, vb = batch["b"], batch["r"], batch["vb"]
+    k, m = lut.shape[0], lut.shape[2]
+    head, tail = batch["head"], batch["tail"]
+
+    def kernel():
+        return sr._launch(batch["source"], b, r, k, lut, mins, vb,
+                          **batch["rows"])
+
+    def plain():
+        return batch["plain"](*head, lut, mins, *tail)
+
+    _, got = batch["fn"](*head, lut, mins, *tail, 1020 * k + 1)
+    want = plain()
+    bare = kernel()
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err or not (torch.equal(got, want) and torch.equal(bare, got)):
+        raise RuntimeError(f"scan_runs != plain at {label}: max err {err}")
+    codes, n_ind = batch["expand"]()
+    onehot = F.one_hot(codes, 4).permute(0, 2, 1).float().contiguous()
+    weight = lut.permute(2, 1, 0).float().contiguous()
+
+    def conv():
+        return F.conv1d(onehot, weight)
+
+    raw = conv().round().to(torch.int32).transpose(1, 2)
+    if not torch.equal(sr.apply_masks(raw, n_ind, vb, mins, k), got):
+        raise RuntimeError(f"conv1d yardstick != scan_runs at {label}")
+    # windows whose sums the masks leave (the data's work)
+    summed = int((sr.apply_masks(torch.full_like(raw, -2), n_ind, vb,
+                                 torch.full_like(mins, -3), k) == -2).sum())
+    del raw, want, bare, codes, n_ind
+    t = _timings(torch, kernel, "scan_runs_kernel", plain=plain,
+                 library=conv)
+    del onehot
+    # bytes: the plane written; descriptors, masks, LUT and the genome
+    # words the rows cover (2 bits a base in the code plane, 1 in the N
+    # plane) read once, rows that overlap sharing them; the words a splice
+    # shift reaches past its row are left out, so the bound stays a least
+    # one
+    rows = batch["rows"]
+    ins = sum(x.numel() * x.element_size() for x in head
+              if isinstance(x, torch.Tensor) and x.dim() == 2)
+    if batch["source"] != 0:
+        if batch["source"] == 1:
+            starts = rows["gstart"].cpu().numpy().astype(np.int64)
+            ins += starts.size * 4
+        else:
+            starts = rows["lo"] + rows["stride"] * np.arange(b, dtype=np.int64)
+        for name, bits in (("genome", 2), ("ngenome", 1)):
+            if rows[name] is not None:
+                ins += _words_read(rows[name], starts, r, bits)
+    nbytes = got.numel() * 4 + ins + lut.numel() * 4 + m * 4
+    adds = summed * (k - 1)  # each kept window's k LUT entries summed
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = adds / INT32_ADDS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    smem_ms = summed * k * 4 / SMEM_BYTES_PER_S * 1e3
+    log(f"scan_runs vs plain [{label}] (B, R, k, M) = ({b}, {r}, {k}, {m}): "
+        f"bit-identical, max_abs_err 0, conv1d equal; "
+        f"{_fmt(t, bound, 'conv1d')} ({'bytes' if bytes_ms >= ops_ms else 'operations'}"
+        f"; LUT reads from shared memory {smem_ms:.5f} ms)")
+    return dict(t, label=label, max_abs_err=err, bound_ms=bound,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                smem_ms=smem_ms, bytes=nbytes, adds=adds)
+
+
+def phase_scan_runs_vs_plain(torch, wd):
+    """Phase 14: the run engine's scoring core, ``csrc/scan_runs.cu``,
+    against its plain version on the card, bit for bit, for every kind:
+    the main path's block (8192 rows of R = 2048 of phase 5's chromosome,
+    real CTCF forward and reverse complement; the strided kind as many
+    rows as the chromosome holds), R = 64 and 256 with 4-slot patches,
+    k in {8, 30, 70}, M in {16, 40}, a clean block (no vbits, no N plane),
+    LUT entries at 1020 (M = 5) and a LUT tiled over columns (M = 400)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 8)
+    genome = _scan_runs_genome(torch, wd, rng)
+    ctcf, ctcf_lut, ctcf_mins = _ctcf_lut(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def motif(k, m):
+        lut, bases, _ = _random_motif_lut(torch, k, m, SEED + k + m)
+        return lut, (bases - 1).to(torch.int32)
+
+    def random_lut(k, m):
+        lut = torch.randint(0, 1001, (k, 4, m), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        lut[:, :, 0] = 1020
+        return lut, lut.amin(dim=(0, 1)).to(torch.int32)
+
+    cases = []
+    shapes = [  # (label, B, R, LUT, patch slots, masks)
+        ("main path block, real CTCF", 8192, 2048, (ctcf_lut, ctcf_mins),
+         16, True),
+        ("R=64 k=8 M=16", 16384, 64, motif(8, 16), 4, True),
+        ("R=256 k=30 M=40", 4096, 256, motif(30, 40), 4, True),
+        ("R=2048 k=70 M=16", 1024, 2048, motif(70, 16), 16, True),
+        ("clean block (no vbits, no N plane), CTCF", 1024, 2048,
+         (ctcf_lut, ctcf_mins), 16, False),
+    ]
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for label, b, r, (lut, mins), slots, masks in shapes:
+            for kind in KINDS:
+                batch = _kind_batch(torch, kind, genome, b, r, lut.shape[0],
+                                    rng, masks, slots)
+                cases.append(_scan_runs_case(torch, f"{kind}, {label}",
+                                             batch, lut, mins))
+                del batch
+        for label, b, r, (lut, mins) in [
+                ("LUT entries at 1020, M=5", 4096, 256, random_lut(19, 5)),
+                ("LUT over column tiles, k=30 M=400", 256, 256,
+                 motif(30, 400))]:
+            batch = _kind_batch(torch, "spliced", genome, b, r, lut.shape[0],
+                                rng)
+            cases.append(_scan_runs_case(torch, f"spliced, {label}", batch,
+                                         lut, mins))
+            del batch
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    return cases
+
+
 def _kernel_line(name, source, replaces, launches, cases, headline, by_path):
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_back_to_back",
             "device_ms")
@@ -1493,7 +1833,7 @@ def _kernel_line(name, source, replaces, launches, cases, headline, by_path):
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, launches_by_path=by_path,
         max_abs_err=max(c["max_abs_err"] for c in cases),
-        bound_by="bytes", case=headline["label"],
+        bound_by=headline.get("bound_by", "bytes"), case=headline["label"],
         **{k: headline.get(k) for k in keys},
     )
 
@@ -1517,9 +1857,12 @@ def main() -> int:
     hist_cases = phase_kernel_vs_plain(torch)
     phase_cuda_vs_cpu(torch)
     with tempfile.TemporaryDirectory(prefix="grafimo_smoke_") as wd:
-        launches, compactions, gdir, synth, batches = phase_main_path(torch,
-                                                                      wd)
+        (launches, compactions, scans, gdir, synth,
+         batches) = phase_main_path(torch, wd)
         peaked = phase_peaked_hist(torch, wd)
+        # phase 14 needs phase 5's chromosome, and its device times a
+        # profiler that no --profile run in this process has used
+        scan_runs_cases = phase_scan_runs_vs_plain(torch, wd)
         scan_cases = phase_scan_packed_vs_plain(torch)
         fused_cases = phase_fused_vs_plain(torch)
         hist_cases += phase_hist_variants(torch)
@@ -1536,11 +1879,17 @@ def main() -> int:
             json.dump({"exact_hist": [peaked] + hist_cases + comp_hist_cases,
                        "scan_packed": scan_cases,
                        "scan_packed_fused": fused_cases,
-                       "compact_hits": compact_cases}, f, indent=1)
+                       "compact_hits": compact_cases,
+                       "scan_runs": scan_runs_cases}, f, indent=1)
     # the compaction's headline: the sparse case at the (2048, 2030, 2)
     # plane, the shape of the histogram's headline
     compact_head = next(c for c in compact_cases if c["hits"]
                         and "p < 1e-4" in c["label"])
+    # the scoring core's headline: the main path's block of gathered rows
+    # (8192 x 2048, the shape a slice takes; the chromosome holds fewer
+    # strided rows)
+    scan_head = next(c for c in scan_runs_cases
+                     if c["label"] == "gathered, main path block, real CTCF")
     # each kernel at the shape its engine's main path gives it: the run
     # engine's plane of real CTCF scores, the window engine's region batch;
     # launches on each path, counted from 0 just before it
@@ -1570,6 +1919,17 @@ def main() -> int:
                          "run engine 10 Mbp, 1 device": compactions,
                          "(4, 2) grid functions":
                              grid_launches["compact_hits"],
+                     }),
+        _kernel_line("scan_runs", "grafimo_tpu_torch/csrc/scan_runs.cu",
+                     "grafimo_tpu/ops/score_runs.py:410", scans,
+                     scan_runs_cases, scan_head, {
+                         "run engine 10 Mbp, 1 device": scans,
+                         "run engine 10 Mbp, 2 shards of cuda:0":
+                             shard_launches,
+                         "(4, 2) grid functions": grid_launches["scan_runs"],
+                         "2 processes, both ranks, peak set + one region":
+                             rank_launches,
+                         "--profile, peak set": profile_launches,
                      }),
     ]}))
     print(json.dumps({"ok": True, "device": {

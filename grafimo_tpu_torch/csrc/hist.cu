@@ -9,7 +9,12 @@
 //
 // over scores viewed as a contiguous (N, M) int32 array.  Values below 0
 // (invalid windows) and at or above hist_size are dropped, as the TPU
-// kernel drops its spill row and cuts bins >= hist_size.  The output is
+// kernel drops its spill row and cuts bins >= hist_size.  With bases (an
+// (M,) int32 array, or null), each score is first remapped as it is loaded
+// to the run engine's compressed bin: s < 0 ? -1 : max(s - bases[c] + 1, 0)
+// (grafimo_tpu/ops/score_runs.py _finish_scores :514-518), so the scan
+// hands over its masked scores and no pass over the plane remaps them.
+// The output is
 // (hist_size, M) int32; the entry zeroes it (cudaMemsetAsync on the
 // launch stream) before counting.  hist_size and M are run-time values.
 //
@@ -62,6 +67,29 @@ constexpr int kThreads = 1024;
 // must not cost more than the counting
 constexpr int64_t kMinPerBlock = 16384;
 
+// The base of group column `c` (kBases), staged in shared memory.
+template <bool kBases>
+__device__ __forceinline__ int base_of(const int32_t* sbase, int c) {
+  if constexpr (kBases) {
+    return sbase[c];
+  } else {
+    return 0;
+  }
+}
+
+// Score v as the value it is counted by: remapped by its column's base
+// when kBases, else as it is.
+template <bool kBases>
+__device__ __forceinline__ int remap(int v, int base) {
+  if constexpr (kBases) {
+    if (v < 0) return -1;
+    const int h = v - base + 1;
+    return h > 0 ? h : 0;
+  } else {
+    return v;
+  }
+}
+
 template <bool kCluster>
 __device__ __forceinline__ void count_value(int32_t* bins, int slice, int v,
                                             int c, int g, int hist_size) {
@@ -75,17 +103,27 @@ __device__ __forceinline__ void count_value(int32_t* bins, int slice, int v,
 // Column groups of `g` columns, `groups` of them: unit u (a cluster of
 // `cluster` blocks, or one block) counts group u % groups, in part
 // u / groups of its rows.  `aligned`: scores sit on 16 bytes (vector loads
-// of the flat plane).
-template <bool kCluster>
+// of the flat plane).  kBases: remap each score by `bases` on load; the
+// group's bases follow the bins in shared memory, and a lane keeps those of
+// its columns in registers while the grid's stride leaves its columns
+// fixed (a group of a power-of-two width divides the stride).
+template <bool kCluster, bool kBases>
 __global__ void __launch_bounds__(kThreads)
 exact_hist_kernel(const int32_t* __restrict__ scores, int64_t n, int m,
-                  int hist_size, int g, int groups, int cluster, int slice,
-                  int aligned, int32_t* __restrict__ out) {
+                  int hist_size, const int32_t* __restrict__ bases, int g,
+                  int groups, int cluster, int slice, int aligned,
+                  int32_t* __restrict__ out) {
   extern __shared__ int32_t bins[];
+  int32_t* sbase = bins + slice;
   const int unit = blockIdx.x / cluster;
   const int g0 = unit % groups * g;
   const int gw = m - g0 < g ? m - g0 : g;  // columns of this group
-  bins_zero<kCluster>(bins, slice);
+  if constexpr (kBases) {
+    for (int i = threadIdx.x; i < gw; i += blockDim.x) {
+      sbase[i] = __ldg(bases + g0 + i);
+    }
+  }
+  bins_zero<kCluster>(bins, slice);  // its barrier covers the bases too
 
   const int lane = threadIdx.x & 31;
   // the group's blocks split its rows; in a cluster, like any others
@@ -102,19 +140,32 @@ exact_hist_kernel(const int32_t* __restrict__ scores, int64_t n, int m,
     const int64_t step = n_warps * 32 * 4;
     const int step_c = static_cast<int>(step % m);
     int c = static_cast<int>(((warp * 32 + lane) * 4) % m);
+    int c1 = c + 1 == m ? 0 : c + 1;
+    int c2 = c1 + 1 == m ? 0 : c1 + 1;
+    int c3 = c2 + 1 == m ? 0 : c2 + 1;
+    int b0 = base_of<kBases>(sbase, c), b1 = base_of<kBases>(sbase, c1);
+    int b2 = base_of<kBases>(sbase, c2), b3 = base_of<kBases>(sbase, c3);
     for (int64_t w = warp; w * 32 < n_vec; w += n_warps) {
       const int64_t i = w * 32 + lane;
       int4 x = make_int4(-1, -1, -1, -1);
       if (i < n_vec) x = __ldg(v4 + i);
-      int c1 = c + 1 == m ? 0 : c + 1;
-      int c2 = c1 + 1 == m ? 0 : c1 + 1;
-      int c3 = c2 + 1 == m ? 0 : c2 + 1;
-      count_value<kCluster>(bins, slice, x.x, c, m, hist_size);
-      count_value<kCluster>(bins, slice, x.y, c1, m, hist_size);
-      count_value<kCluster>(bins, slice, x.z, c2, m, hist_size);
-      count_value<kCluster>(bins, slice, x.w, c3, m, hist_size);
-      c += step_c;
-      if (c >= m) c -= m;
+      count_value<kCluster>(bins, slice, remap<kBases>(x.x, b0), c, m,
+                            hist_size);
+      count_value<kCluster>(bins, slice, remap<kBases>(x.y, b1), c1, m,
+                            hist_size);
+      count_value<kCluster>(bins, slice, remap<kBases>(x.z, b2), c2, m,
+                            hist_size);
+      count_value<kCluster>(bins, slice, remap<kBases>(x.w, b3), c3, m,
+                            hist_size);
+      if (step_c) {  // uniform over the grid
+        c += step_c;
+        if (c >= m) c -= m;
+        c1 = c + 1 == m ? 0 : c + 1;
+        c2 = c1 + 1 == m ? 0 : c1 + 1;
+        c3 = c2 + 1 == m ? 0 : c2 + 1;
+        b0 = base_of<kBases>(sbase, c), b1 = base_of<kBases>(sbase, c1);
+        b2 = base_of<kBases>(sbase, c2), b3 = base_of<kBases>(sbase, c3);
+      }
     }
     // the tail past the last whole vector (all of it when unaligned)
     const int64_t done = n_vec * 4;
@@ -123,7 +174,9 @@ exact_hist_kernel(const int32_t* __restrict__ scores, int64_t n, int m,
     for (int64_t w = warp; done + w * 32 < total; w += n_warps) {
       const int64_t e = done + w * 32 + lane;
       const int v = e < total ? __ldg(scores + e) : -1;
-      count_value<kCluster>(bins, slice, v, c, m, hist_size);
+      count_value<kCluster>(bins, slice,
+                            remap<kBases>(v, base_of<kBases>(sbase, c)), c, m,
+                            hist_size);
       c += step1_c;
       if (c >= m) c -= m;
     }
@@ -136,15 +189,20 @@ exact_hist_kernel(const int32_t* __restrict__ scores, int64_t n, int m,
     int64_t e0 = warp * 32 + lane;
     int64_t row = e0 / gw;
     int c = static_cast<int>(e0 - row * gw);
+    int bc = base_of<kBases>(sbase, c);
     for (int64_t w = warp; w * 32 < total; w += n_warps) {
       const int64_t e = w * 32 + lane;
       const int v = e < total ? __ldg(scores + row * m + g0 + c) : -1;
-      count_value<kCluster>(bins, slice, v, c, gw, hist_size);
+      count_value<kCluster>(bins, slice, remap<kBases>(v, bc), c, gw,
+                            hist_size);
       row += step_r;
-      c += step_c;
-      if (c >= gw) {
-        c -= gw;
-        ++row;
+      if (step_c) {  // uniform over the grid
+        c += step_c;
+        if (c >= gw) {
+          c -= gw;
+          ++row;
+        }
+        bc = base_of<kBases>(sbase, c);
       }
     }
   }
@@ -161,14 +219,15 @@ exact_hist_kernel(const int32_t* __restrict__ scores, int64_t n, int m,
              });
 }
 
-template <bool kCluster>
+template <bool kCluster, bool kBases>
 cudaError_t launch_hist(const DeviceInfo& d, int dev, const int32_t* scores,
-                        int64_t n, int m, int hist_size, const BinPlan& plan,
-                        int32_t* out, cudaStream_t stream) {
-  auto kernel = exact_hist_kernel<kCluster>;
+                        int64_t n, int m, int hist_size, const int32_t* bases,
+                        const BinPlan& plan, int32_t* out,
+                        cudaStream_t stream) {
+  auto kernel = exact_hist_kernel<kCluster, kBases>;
   cudaError_t err = allow_max_smem(kernel, dev, d.smem_block);
   if (err != cudaSuccess) return err;
-  const int smem = plan.slice * 4;
+  const int smem = (plan.slice + (kBases ? plan.group : 0)) * 4;
   int units;  // clusters (or blocks) the device holds at once
   if (kCluster) {
     err = active_clusters(kernel, dev, plan.cluster, kThreads, smem, &units);
@@ -188,19 +247,20 @@ cudaError_t launch_hist(const DeviceInfo& d, int dev, const int32_t* scores,
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   const int aligned = (reinterpret_cast<uintptr_t>(scores) & 15) == 0;
   return launch(kernel, dim3(static_cast<unsigned>(blocks)), kThreads, smem,
-                stream, plan.cluster, scores, n, m, hist_size, plan.group,
-                plan.groups, plan.cluster, plan.slice, aligned, out);
+                stream, plan.cluster, scores, n, m, hist_size, bases,
+                plan.group, plan.groups, plan.cluster, plan.slice, aligned,
+                out);
 }
 
 }  // namespace
 
 // Zero `out` and count `scores` into it on `stream` (a cudaStream_t passed
-// as void*), on device `dev`, which must be current.  Returns the
-// cudaError_t of the memset or launch (0 = success); it does not
-// synchronise.
+// as void*), on device `dev`, which must be current; `bases` ((m,) int32)
+// remaps each score on load, or is null.  Returns the cudaError_t of the
+// memset or launch (0 = success); it does not synchronise.
 extern "C" int grafimo_exact_hist(const void* scores, long long n, int m,
-                                  int hist_size, void* out, int dev,
-                                  void* stream) {
+                                  int hist_size, const void* bases, void* out,
+                                  int dev, void* stream) {
   if (m <= 0 || hist_size <= 0) return 0;
   if (m > 65535) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
@@ -212,14 +272,24 @@ extern "C" int grafimo_exact_hist(const void* scores, long long n, int m,
   err = device_info(dev, &d);
   if (err != cudaSuccess) return static_cast<int>(err);
   BinPlan plan;
-  if (!plan_bins(m, hist_size, d->smem_block, 0, &plan)) {
+  const auto* bs = static_cast<const int32_t*>(bases);
+  // with bases, each column also keeps its base in shared memory
+  if (!plan_bins(m, hist_size, d->smem_block, bs ? 1 : 0, &plan)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* sc = static_cast<const int32_t*>(scores);
   const int64_t rows = static_cast<int64_t>(n);
-  err = plan.cluster > 1
-            ? launch_hist<true>(*d, dev, sc, rows, m, hist_size, plan, o, s)
-            : launch_hist<false>(*d, dev, sc, rows, m, hist_size, plan, o, s);
+  if (plan.cluster > 1) {
+    err = bs ? launch_hist<true, true>(*d, dev, sc, rows, m, hist_size, bs,
+                                       plan, o, s)
+             : launch_hist<true, false>(*d, dev, sc, rows, m, hist_size, bs,
+                                        plan, o, s);
+  } else {
+    err = bs ? launch_hist<false, true>(*d, dev, sc, rows, m, hist_size, bs,
+                                        plan, o, s)
+             : launch_hist<false, false>(*d, dev, sc, rows, m, hist_size, bs,
+                                         plan, o, s);
+  }
   return static_cast<int>(err);
 }
 

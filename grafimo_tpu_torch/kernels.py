@@ -24,7 +24,7 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
     os.path.join(_HERE, "csrc", name)
-    for name in ("hist.cu", "scan_packed.cu", "compact.cu")
+    for name in ("hist.cu", "scan_packed.cu", "compact.cu", "scan_runs.cu")
 ]
 HEADERS = [os.path.join(_HERE, "csrc", "bins.cuh")]
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -120,7 +120,7 @@ def load() -> ctypes.CDLL:
             c = ctypes
             lib.grafimo_exact_hist.argtypes = [
                 c.c_void_p, c.c_longlong, c.c_int, c.c_int, c.c_void_p,
-                c.c_int, c.c_void_p,
+                c.c_void_p, c.c_int, c.c_void_p,
             ]
             lib.grafimo_exact_hist.restype = c.c_int
             lib.grafimo_max_hist_size.argtypes = [c.c_int]
@@ -137,6 +137,19 @@ def load() -> ctypes.CDLL:
                 c.c_void_p, c.c_int, c.c_void_p,
             ]
             lib.grafimo_compact_hits.restype = c.c_int
+            lib.grafimo_scan_runs.argtypes = [
+                c.c_int,  # source
+                c.c_void_p, c.c_int, c.c_void_p, c.c_int,  # packed, nbits
+                c.c_void_p, c.c_longlong, c.c_void_p, c.c_longlong,  # planes
+                c.c_void_p, c.c_longlong, c.c_longlong,  # gstart, lo, stride
+                c.c_void_p, c.c_int,  # patches, slots
+                c.c_void_p, c.c_int, c.c_int,  # splice, pairs, clear_n
+                c.c_void_p, c.c_int,  # vbits
+                c.c_void_p, c.c_void_p,  # lut, min_scores
+                c.c_longlong, c.c_int, c.c_int, c.c_int,  # b, r, k, m
+                c.c_void_p, c.c_int, c.c_void_p,  # out, dev, stream
+            ]
+            lib.grafimo_scan_runs.restype = c.c_int
             lib.grafimo_cuda_error_string.argtypes = [c.c_int]
             lib.grafimo_cuda_error_string.restype = c.c_char_p
             _LIB = lib

@@ -4,13 +4,19 @@ Counterpart of ``grafimo_tpu/ops/pallas_hist.py::hist_pallas`` and
 ``grafimo_tpu/ops/score_runs.py::_exact_hist`` (``:311-377``).  Contract:
 ``scores (..., M) int32`` -> ``(hist_size, M) int32`` with
 ``out[b, c] = #{scores[..., c] == b}``; values below 0 (invalid windows)
-and at or above ``hist_size`` are dropped.
+and at or above ``hist_size`` are dropped.  With ``bases (M,) int32``
+each score is first remapped to the run engine's compressed bin,
+``s < 0 ? -1 : max(s - bases[c] + 1, 0)`` (the remap of the reference's
+``_finish_scores``, ``score_runs.py:514-518``); the kernel applies it as
+it loads each score.
 
 :func:`exact_hist` launches ``csrc/hist.cu`` for a CUDA tensor and raises
 if it cannot; it takes :func:`exact_hist_reference` only for a CPU
 tensor.  ``COUNTS`` records which of the two ran, so a run can show that
 its main path went through the kernel.
 """
+
+from typing import Optional
 
 import torch
 
@@ -38,17 +44,45 @@ def bincount(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
     return torch.bincount(idx, minlength=hist_size * m).view(hist_size, m)
 
 
-def exact_hist_reference(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
-    """Plain PyTorch version (:func:`bincount`, as int32)."""
+def remap(scores: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
+    """The compressed bins of ``scores``: bin 0 below the column's base
+    (the N-window value), ``1 + i`` the score ``base + i``, -1 invalid."""
+    return torch.where(scores < 0, -1, torch.clamp(scores - bases + 1, min=0))
+
+
+def exact_hist_reference(scores: torch.Tensor, hist_size: int,
+                         bases: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version (:func:`remap`, then :func:`bincount`, as
+    int32)."""
     COUNTS["plain"] += 1
+    if bases is not None:
+        scores = remap(scores, bases)
     return bincount(scores, hist_size).to(torch.int32)
 
 
-def exact_hist(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
-    """Exact histogram of ``scores`` -- the CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
+def _check_bases(scores: torch.Tensor, bases: torch.Tensor) -> None:
+    m = scores.shape[-1]
+    if tuple(bases.shape) != (m,):
+        raise ValueError(f"exact_hist: bases must be ({m},), got "
+                         f"{tuple(bases.shape)}")
+    if bases.device != scores.device:
+        raise ValueError(f"exact_hist: bases on {bases.device}, scores on "
+                         f"{scores.device}")
+    if bases.dtype != torch.int32:
+        raise TypeError(f"exact_hist: bases must be int32, got {bases.dtype}")
+    if not bases.is_contiguous():
+        raise ValueError("exact_hist: bases must be contiguous")
+
+
+def exact_hist(scores: torch.Tensor, hist_size: int,
+               bases: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Exact histogram of ``scores`` (remapped by ``bases`` when given) --
+    the CUDA kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    if bases is not None:
+        _check_bases(scores, bases)
     if scores.device.type == "cpu":
-        return exact_hist_reference(scores, hist_size)
+        return exact_hist_reference(scores, hist_size, bases)
     if scores.device.type != "cuda":
         raise ValueError(f"exact_hist: unsupported device {scores.device}")
     if scores.dtype != torch.int32:
@@ -69,7 +103,8 @@ def exact_hist(scores: torch.Tensor, hist_size: int) -> torch.Tensor:
     out = torch.empty((hist_size, m), dtype=torch.int32, device=scores.device)
     with kernels.on_device(dev):
         code = lib.grafimo_exact_hist(
-            scores.data_ptr(), n, m, hist_size, out.data_ptr(), dev,
+            scores.data_ptr(), n, m, hist_size,
+            None if bases is None else bases.data_ptr(), out.data_ptr(), dev,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(lib, code, "exact_hist launch")

@@ -1,17 +1,25 @@
-"""Run scanning as torch ops: expand, score and histogram every stride-1
-window of a run batch.
+"""Run scanning: expand, score and histogram every stride-1 window of a
+run batch.
 
 Counterpart of ``grafimo_tpu/ops/score_runs.py``.  Each of the five batch
 kinds the run scan dispatches has a function here that takes the batch's
 tensors on one device and returns
 
-* ``hist (hist_size, M) int32`` -- the exact score histogram of the
-  batch (the CUDA kernel of :mod:`grafimo_tpu_torch.ops.hist` on a card);
 * ``scores (B, Noff, M) int32`` -- the window scores after the N and
-  validity masks (invalid windows -1), from which
-  :mod:`grafimo_tpu_torch.ops.compact` takes the hits (the reference
-  packs them into hit bits and compacts them in the same jitted kernel,
-  ``_finish_scores``, ``_topk_package_tiered``).
+  validity masks (windows covering an N score ``min_score``, invalid
+  offsets -1), from which :mod:`grafimo_tpu_torch.ops.compact` takes the
+  hits (the reference packs them into hit bits and compacts them in the
+  same jitted kernel, ``_finish_scores``, ``_topk_package_tiered``);
+* ``hist (hist_size, M) int32`` -- their exact histogram
+  (:mod:`grafimo_tpu_torch.ops.hist`), over the compressed bins of
+  ``hist_bases`` when given.
+
+The masked scores come from one launch of ``csrc/scan_runs.cu`` for CUDA
+tensors, which raises if it cannot, and from the plain version
+(``scan_runs_*_reference``) only for CPU tensors; ``COUNTS`` records which
+ran.  Both routes check their tensors alike.  A slice block on a card is
+three launches: ``scan_runs.cu``, ``hist.cu`` (which remaps on load) and
+``compact.cu``.
 
 Scoring is integer throughout: ``acc += lut[j][codes[:, j:j+Noff]]`` for
 ``j < k`` in int32, the sum the reference's select formulation
@@ -31,6 +39,7 @@ The module also carries copies of the jax-free host helpers of
 import numpy as np
 import torch
 
+from grafimo_tpu_torch import kernels
 from grafimo_tpu_torch.utils.constants import RANGE
 from grafimo_tpu_torch.ops.hist import exact_hist
 
@@ -197,17 +206,14 @@ def _expand_resident_bits(words, gstart, r: int) -> torch.Tensor:
 
 def _decode_span(words, lo: int, n_codes: int, bits: int) -> torch.Tensor:
     """Decode ``n_codes`` consecutive ``bits``-wide codes from element
-    offset ``lo`` of a word plane.  A span past the plane raises: torch
-    slicing would truncate it silently, as the reference's dynamic_slice
-    would clamp it (see ``runscan._resident_genome``'s margin)."""
+    offset ``lo`` of a word plane.  A span past the plane raises
+    (:func:`_check_span`): torch slicing would truncate it silently, as the
+    reference's dynamic_slice would clamp it (see
+    ``runscan._resident_genome``'s margin)."""
+    _check_span(words, lo, n_codes, bits)
     per = 32 // bits
     nw = (n_codes + per - 1) // per + 1
     w0 = lo // per
-    if lo < 0 or w0 + nw > words.shape[0]:
-        raise RuntimeError(
-            f"span of {nw} words from word {w0} exceeds the resident plane "
-            f"of {words.shape[0]} words"
-        )
     w = words[w0 : w0 + nw]
     sb = (lo % per) * bits
     shifted = w[:-1] >> sb
@@ -252,7 +258,17 @@ def _clear_at_patches(plane: torch.Tensor, patches: torch.Tensor):
 
 
 # --------------------------------------------------------------------------
-# scoring core (reference ``_window_scores :410``, ``_finish_scores :483``)
+# the plain version of the scoring core (reference ``_window_scores :410``
+# and the masks of ``_finish_scores :483-502``)
+
+# launches of csrc/scan_runs.cu / calls of the plain version since the
+# last reset_counts()
+COUNTS = {"kernel": 0, "plain": 0}
+
+
+def reset_counts() -> None:
+    COUNTS["kernel"] = 0
+    COUNTS["plain"] = 0
 
 
 def _window_scores(codes: torch.Tensor, lut: torch.Tensor, k: int):
@@ -267,13 +283,13 @@ def _window_scores(codes: torch.Tensor, lut: torch.Tensor, k: int):
     return acc
 
 
-def _finish_scores(scores, n_ind, valid, min_scores, k: int, hist_size: int,
-                   hist_bases=None):
-    """N-window and validity masks, the histogram remap and the histogram
-    of raw window scores: ``(hist, masked scores)``."""
-    b = scores.shape[0]
+def apply_masks(scores, n_ind, vbits, min_scores, k: int):
+    """The N-window and validity masks over raw window scores ``(B, Noff,
+    M)``: windows covering an N base of ``n_ind (B, R)`` score
+    ``min_scores``, then offsets clear in ``vbits`` score -1 (either may be
+    None)."""
+    b, noff = scores.shape[:2]
     if n_ind is not None:
-        # windows covering an N base score min_score
         cum = torch.cat(
             [torch.zeros((b, 1), dtype=torch.int64, device=scores.device),
              torch.cumsum(n_ind, dim=1)],
@@ -281,102 +297,48 @@ def _finish_scores(scores, n_ind, valid, min_scores, k: int, hist_size: int,
         )
         has_n = (cum[:, k:] - cum[:, :-k]) > 0
         scores = torch.where(has_n[:, :, None], min_scores, scores)
-    if valid is not None:
+    if vbits is not None:
+        valid = _unpack1(vbits, noff).bool()
         scores = torch.where(valid[:, :, None], scores, -1)
-    if hist_bases is not None:
-        # device bin 0 = below the base (the N value), 1 + i = base + i;
-        # invalid stays -1 and is dropped by the histogram
-        h = torch.where(
-            scores < 0, -1, torch.clamp(scores - hist_bases + 1, min=0)
-        )
-    else:
-        h = scores
-    return exact_hist(h.contiguous(), hist_size), scores.contiguous()
+    return scores.contiguous()
 
 
-def _score_codes(codes, n_ind, vbits, lut, min_scores, k: int,
-                 hist_size: int, hist_bases=None):
-    noff = codes.shape[1] - k + 1
-    valid = _unpack1(vbits, noff).bool() if vbits is not None else None
-    scores = _window_scores(codes, lut, k)
-    return _finish_scores(scores, n_ind, valid, min_scores, k, hist_size,
-                          hist_bases)
+# Each kind's rows as ``(codes (B, R) int64, N indicator (B, R) or None)``
 
 
-# --------------------------------------------------------------------------
-# the five batch kinds.  Arguments follow the reference's ``*_topk``
-# kernels without ``hist_acc``, ``cutoffs`` and ``topk``;
-# ``nbits``/``ngenome`` and ``vbits`` may be None (clean batch: no N bases
-# / every offset valid).
-
-
-def scan_runs_device(packed, nbits, vbits, lut, min_scores, k: int,
-                     hist_size: int, hist_bases=None):
-    """Packed rows: ``packed (B, R/4) uint8`` codes, ``nbits (B, R/8)``
-    N plane (reference ``scan_runs_device_topk :554``)."""
+def rows_packed(packed, nbits):
     r = packed.shape[1] * 4
-    codes = _unpack2(packed)
-    n_ind = _unpack1(nbits, r) if nbits is not None else None
-    return _score_codes(codes, n_ind, vbits, lut, min_scores, k, hist_size,
-                        hist_bases)
+    return _unpack2(packed), (_unpack1(nbits, r) if nbits is not None
+                              else None)
 
 
-def scan_runs_resident(genome, ngenome, gstart, vbits, lut, min_scores,
-                       r: int, k: int, hist_size: int, hist_bases=None):
-    """Gathered backbone rows at genome offsets ``gstart`` (reference
-    ``scan_runs_resident_topk :789``)."""
+def rows_resident(genome, ngenome, gstart, r: int):
     gstart = gstart.to(torch.int64)
-    codes = _expand_resident(genome, gstart, r)
-    n_ind = (
+    return _expand_resident(genome, gstart, r), (
         _expand_resident_bits(ngenome, gstart, r)
         if ngenome is not None else None
     )
-    return _score_codes(codes, n_ind, vbits, lut, min_scores, k, hist_size,
-                        hist_bases)
 
 
-def scan_runs_resident_strided(genome, ngenome, lo: int, vbits, lut,
-                               min_scores, b: int, stride: int, r: int,
-                               k: int, hist_size: int, hist_bases=None):
-    """Uniformly strided backbone rows, row i at ``lo + i*stride``
-    (reference ``scan_runs_resident_strided_topk :819``)."""
-    codes = _expand_strided(genome, lo, b, stride, r, 2)
-    n_ind = (
+def rows_strided(genome, ngenome, lo: int, b: int, stride: int, r: int):
+    return _expand_strided(genome, lo, b, stride, r, 2), (
         _expand_strided(ngenome, lo, b, stride, r, 1)
         if ngenome is not None else None
     )
-    return _score_codes(codes, n_ind, vbits, lut, min_scores, k, hist_size,
-                        hist_bases)
 
 
-def scan_runs_resident_patched(genome, ngenome, gstart, patches, vbits, lut,
-                               min_scores, r: int, k: int, hist_size: int,
-                               hist_bases=None):
-    """Substitution-only cluster rows: genome at ``gstart`` plus per-row
-    patches (reference ``scan_runs_resident_patched_topk :901``)."""
+def rows_patched(genome, ngenome, gstart, patches, r: int):
+    """The N plane keeps its bits at patched offsets (reference
+    ``:912-917``)."""
+    codes, n_ind = rows_resident(genome, ngenome, gstart, r)
+    return _apply_patches(codes, patches), n_ind
+
+
+def rows_spliced(genome, ngenome, gstart, splice, patches, r: int):
+    """The N plane is cleared at patched offsets (reference
+    ``:987-989``)."""
     gstart = gstart.to(torch.int64)
-    codes = _apply_patches(_expand_resident(genome, gstart, r), patches)
-    n_ind = (
-        _expand_resident_bits(ngenome, gstart, r)
-        if ngenome is not None else None
-    )
-    return _score_codes(codes, n_ind, vbits, lut, min_scores, k, hist_size,
-                        hist_bases)
-
-
-def scan_runs_resident_spliced(genome, ngenome, gstart, splice, patches,
-                               vbits, lut, min_scores, r: int, k: int,
-                               hist_size: int, hist_bases=None):
-    """Indel cluster rows: the genome spliced piecewise at ``(bound,
-    shift)`` pairs of ``splice (B, 2*S) int16`` (bound ``0x7FFF`` =
-    unused), then patched (reference
-    ``scan_runs_resident_spliced_topk :946``)."""
-    gstart = gstart.to(torch.int64)
-    codes = _expand_resident(genome, gstart, r)
-    n_ind = (
-        _expand_resident_bits(ngenome, gstart, r)
-        if ngenome is not None else None
-    )
+    codes, n_ind = rows_resident(genome, ngenome, gstart, r)
     iota = torch.arange(r, device=codes.device)[None, :]
     s64 = splice.to(torch.int64)
     for s in range(splice.shape[1] // 2):
@@ -392,5 +354,260 @@ def scan_runs_resident_spliced(genome, ngenome, gstart, splice, patches,
     codes = _apply_patches(codes, patches)
     if n_ind is not None:
         n_ind = _clear_at_patches(n_ind, patches)
-    return _score_codes(codes, n_ind, vbits, lut, min_scores, k, hist_size,
-                        hist_bases)
+    return codes, n_ind
+
+
+def _masked_scores(rows, vbits, lut, min_scores, k: int):
+    COUNTS["plain"] += 1
+    codes, n_ind = rows
+    return apply_masks(_window_scores(codes, lut, k), n_ind, vbits,
+                       min_scores, k)
+
+
+def scan_runs_device_reference(packed, nbits, vbits, lut, min_scores, k: int):
+    """Plain version of :func:`scan_runs_device`'s masked scores."""
+    return _masked_scores(rows_packed(packed, nbits), vbits, lut, min_scores,
+                          k)
+
+
+def scan_runs_resident_reference(genome, ngenome, gstart, vbits, lut,
+                                 min_scores, r: int, k: int):
+    """Plain version of :func:`scan_runs_resident`'s masked scores."""
+    return _masked_scores(rows_resident(genome, ngenome, gstart, r), vbits,
+                          lut, min_scores, k)
+
+
+def scan_runs_resident_strided_reference(genome, ngenome, lo: int, vbits,
+                                         lut, min_scores, b: int,
+                                         stride: int, r: int, k: int):
+    """Plain version of :func:`scan_runs_resident_strided`'s masked
+    scores."""
+    return _masked_scores(rows_strided(genome, ngenome, lo, b, stride, r),
+                          vbits, lut, min_scores, k)
+
+
+def scan_runs_resident_patched_reference(genome, ngenome, gstart, patches,
+                                         vbits, lut, min_scores, r: int,
+                                         k: int):
+    """Plain version of :func:`scan_runs_resident_patched`'s masked
+    scores."""
+    return _masked_scores(
+        rows_patched(genome, ngenome, gstart, patches, r), vbits, lut,
+        min_scores, k)
+
+
+def scan_runs_resident_spliced_reference(genome, ngenome, gstart, splice,
+                                         patches, vbits, lut, min_scores,
+                                         r: int, k: int):
+    """Plain version of :func:`scan_runs_resident_spliced`'s masked
+    scores."""
+    return _masked_scores(
+        rows_spliced(genome, ngenome, gstart, splice, patches, r), vbits,
+        lut, min_scores, k)
+
+
+# --------------------------------------------------------------------------
+# the kernel (csrc/scan_runs.cu) and the checks both routes share
+
+_PACKED, _GATHERED, _STRIDED = 0, 1, 2  # the kernel's row sources
+_DTYPES = {
+    "packed": torch.uint8, "nbits": torch.uint8, "vbits": torch.uint8,
+    "genome": torch.int64, "ngenome": torch.int64, "gstart": torch.int32,
+    "patches": torch.int16, "splice": torch.int16, "lut": torch.int32,
+    "min_scores": torch.int32,
+}
+
+
+def _check_span(words, lo: int, n_codes: int, bits: int) -> None:
+    """Raise when ``n_codes`` ``bits``-wide codes from element ``lo`` (and
+    the word the funnel shift reads past them) leave the word plane."""
+    per = 32 // bits
+    nw = (n_codes + per - 1) // per + 1
+    w0 = lo // per
+    if lo < 0 or w0 + nw > words.shape[0]:
+        raise RuntimeError(
+            f"span of {nw} words from word {w0} exceeds the resident plane "
+            f"of {words.shape[0]} words"
+        )
+
+
+def _check(source: int, b: int, r: int, k: int, lut, min_scores, vbits, *,
+           lo: int = 0, stride: int = 0, **rows) -> None:
+    """Device, dtype, contiguity and shape of a batch kind's tensors;
+    raises on the first fault."""
+    dev = lut.device
+    for name, t in dict(rows, lut=lut, min_scores=min_scores,
+                        vbits=vbits).items():
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"scan_runs: {name} on {t.device}, lut on {dev}")
+        if t.dtype != _DTYPES[name]:
+            raise TypeError(f"scan_runs: {name} must be {_DTYPES[name]}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"scan_runs: {name} must be contiguous")
+    if lut.dim() != 3 or tuple(lut.shape[:2]) != (k, 4):
+        raise ValueError(f"scan_runs: lut must be ({k}, 4, M), got "
+                         f"{tuple(lut.shape)}")
+    if tuple(min_scores.shape) != (lut.shape[2],):
+        raise ValueError(f"scan_runs: min_scores must be ({lut.shape[2]},), "
+                         f"got {tuple(min_scores.shape)}")
+    if not 1 <= k <= r:
+        raise ValueError(f"scan_runs: window width {k} outside 1..R={r}")
+    noff = r - k + 1
+    widths = {"vbits": (noff + 7) // 8, "nbits": (r + 7) // 8, "packed": 1,
+              "patches": 1, "splice": 2}
+    for name, t in dict(rows, vbits=vbits).items():
+        if t is None:
+            continue
+        if name in ("genome", "ngenome"):
+            ok = t.dim() == 1 and t.shape[0] > 0
+        elif name == "gstart":
+            ok = tuple(t.shape) == (b,)
+        else:
+            ok = (t.dim() == 2 and t.shape[0] == b
+                  and t.shape[1] >= widths[name]
+                  and (name != "splice" or t.shape[1] % 2 == 0))
+        if not ok:
+            raise ValueError(f"scan_runs: {name} has shape {tuple(t.shape)} "
+                             f"for {b} rows of R={r}, k={k}")
+    if source == _STRIDED:
+        if not stride <= r <= 2 * stride:
+            raise ValueError(f"scan_runs: strided rows need stride <= R <= "
+                             f"2 * stride, got stride {stride}, R={r}")
+
+
+def _launch(source: int, b: int, r: int, k: int, lut, min_scores, vbits, *,
+            packed=None, nbits=None, genome=None, ngenome=None, gstart=None,
+            lo: int = 0, stride: int = 0, patches=None, splice=None,
+            clear_n: bool = False) -> torch.Tensor:
+    """One launch of ``csrc/scan_runs.cu``: the masked scores.  A strided
+    span past a plane raises, as the plain version's span decode does."""
+    if source == _STRIDED:
+        for words, bits in ((genome, 2), (ngenome, 1)):
+            if words is not None:
+                _check_span(words, lo, b * stride + r, bits)
+    dev = lut.device
+    noff = r - k + 1
+    m = lut.shape[2]
+    if b * noff * m >= 1 << 31:
+        raise ValueError(f"scan_runs: {b * noff * m} windows do not fit an "
+                         f"int32 flat index")
+    out = torch.empty((b, noff, m), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def cols(t):
+        return 0 if t is None else t.shape[-1]
+
+    lib = kernels.load()
+    ix = dev.index
+    with kernels.on_device(ix):
+        code = lib.grafimo_scan_runs(
+            source, ptr(packed), cols(packed), ptr(nbits), cols(nbits),
+            ptr(genome), cols(genome), ptr(ngenome), cols(ngenome),
+            ptr(gstart), lo, stride, ptr(patches), cols(patches),
+            ptr(splice), cols(splice) // 2, int(clear_n), ptr(vbits),
+            cols(vbits), lut.data_ptr(), min_scores.data_ptr(), b, r, k, m,
+            out.data_ptr(), ix, torch.cuda.current_stream(ix).cuda_stream,
+        )
+    kernels.check(lib, code, "scan_runs launch")
+    if b:
+        COUNTS["kernel"] += 1
+    return out
+
+
+def _scores(plain, source: int, b: int, r: int, k: int, lut, min_scores,
+            vbits, clear_n: bool = False, **rows) -> torch.Tensor:
+    """The masked scores: ``plain()`` for CPU tensors, one launch of the
+    kernel for CUDA tensors."""
+    _check(source, b, r, k, lut, min_scores, vbits, **rows)
+    if lut.device.type == "cpu":
+        return plain()
+    if lut.device.type != "cuda":
+        raise ValueError(f"scan_runs: unsupported device {lut.device}")
+    return _launch(source, b, r, k, lut, min_scores, vbits, clear_n=clear_n,
+                   **rows)
+
+
+# --------------------------------------------------------------------------
+# the five batch kinds.  Arguments follow the reference's ``*_topk``
+# kernels without ``hist_acc``, ``cutoffs`` and ``topk``;
+# ``nbits``/``ngenome`` and ``vbits`` may be None (clean batch: no N bases
+# / every offset valid).  Each returns ``(hist, scores)``: the masked
+# scores and their histogram, remapped by ``hist_bases`` when given
+# (:func:`~grafimo_tpu_torch.ops.hist.exact_hist`).
+
+
+def scan_runs_device(packed, nbits, vbits, lut, min_scores, k: int,
+                     hist_size: int, hist_bases=None):
+    """Packed rows: ``packed (B, R/4) uint8`` codes, ``nbits (B, R/8)``
+    N plane (reference ``scan_runs_device_topk :554``)."""
+    if packed.dim() != 2:
+        raise ValueError(f"scan_runs: packed must be (B, R/4), got "
+                         f"{tuple(packed.shape)}")
+    b, r = packed.shape[0], packed.shape[1] * 4
+    scores = _scores(
+        lambda: scan_runs_device_reference(packed, nbits, vbits, lut,
+                                           min_scores, k),
+        _PACKED, b, r, k, lut, min_scores, vbits, packed=packed, nbits=nbits)
+    return exact_hist(scores, hist_size, hist_bases), scores
+
+
+def scan_runs_resident(genome, ngenome, gstart, vbits, lut, min_scores,
+                       r: int, k: int, hist_size: int, hist_bases=None):
+    """Gathered backbone rows at genome offsets ``gstart (B,) int32``
+    (reference ``scan_runs_resident_topk :789``)."""
+    scores = _scores(
+        lambda: scan_runs_resident_reference(genome, ngenome, gstart, vbits,
+                                             lut, min_scores, r, k),
+        _GATHERED, gstart.shape[0], r, k, lut, min_scores, vbits,
+        genome=genome, ngenome=ngenome, gstart=gstart)
+    return exact_hist(scores, hist_size, hist_bases), scores
+
+
+def scan_runs_resident_strided(genome, ngenome, lo: int, vbits, lut,
+                               min_scores, b: int, stride: int, r: int,
+                               k: int, hist_size: int, hist_bases=None):
+    """Uniformly strided backbone rows, row i at ``lo + i*stride``
+    (reference ``scan_runs_resident_strided_topk :819``); requires
+    ``stride <= r <= 2*stride`` and raises on a span past the planes."""
+    scores = _scores(
+        lambda: scan_runs_resident_strided_reference(
+            genome, ngenome, lo, vbits, lut, min_scores, b, stride, r, k),
+        _STRIDED, b, r, k, lut, min_scores, vbits, genome=genome,
+        ngenome=ngenome, lo=lo, stride=stride)
+    return exact_hist(scores, hist_size, hist_bases), scores
+
+
+def scan_runs_resident_patched(genome, ngenome, gstart, patches, vbits, lut,
+                               min_scores, r: int, k: int, hist_size: int,
+                               hist_bases=None):
+    """Substitution-only cluster rows: genome at ``gstart`` plus per-row
+    patches ``(B, P) int16`` (reference
+    ``scan_runs_resident_patched_topk :901``)."""
+    scores = _scores(
+        lambda: scan_runs_resident_patched_reference(
+            genome, ngenome, gstart, patches, vbits, lut, min_scores, r, k),
+        _GATHERED, gstart.shape[0], r, k, lut, min_scores, vbits,
+        genome=genome, ngenome=ngenome, gstart=gstart, patches=patches)
+    return exact_hist(scores, hist_size, hist_bases), scores
+
+
+def scan_runs_resident_spliced(genome, ngenome, gstart, splice, patches,
+                               vbits, lut, min_scores, r: int, k: int,
+                               hist_size: int, hist_bases=None):
+    """Indel cluster rows: the genome spliced piecewise at ``(bound,
+    shift)`` pairs of ``splice (B, 2*S) int16`` (bound ``0x7FFF`` =
+    unused), then patched (reference
+    ``scan_runs_resident_spliced_topk :946``)."""
+    scores = _scores(
+        lambda: scan_runs_resident_spliced_reference(
+            genome, ngenome, gstart, splice, patches, vbits, lut, min_scores,
+            r, k),
+        _GATHERED, gstart.shape[0], r, k, lut, min_scores, vbits,
+        genome=genome, ngenome=ngenome, gstart=gstart, patches=patches,
+        splice=splice, clear_n=True)
+    return exact_hist(scores, hist_size, hist_bases), scores

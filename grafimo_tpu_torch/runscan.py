@@ -946,20 +946,11 @@ def _scan_block(batch: DeviceBatch, rows: slice, vb, strided: bool,
             hist_bases=on.bases,
         )
     if strided:
-        stride = batch.R - k + 1
-        # the span decode must stay inside the padded plane (reference
-        # runscan.py:1596-1612), for this block's rows
-        need = (int(gs[0]) // 16) + (
-            len(gs) * stride + batch.R + 15
-        ) // 16 + 1
-        if need > g4.shape[0]:
-            raise RuntimeError(
-                f"strided span {need} words exceeds the resident plane "
-                f"{g4.shape[0]} — margin regression in _resident_genome"
-            )
+        # the kind raises on a span past the padded plane (reference
+        # runscan.py:1596-1612)
         return scan_runs_resident_strided(
-            g4, gn, int(gs[0]), vb, *common, len(gs), stride, batch.R, k,
-            comp_size, hist_bases=on.bases,
+            g4, gn, int(gs[0]), vb, *common, len(gs), batch.R - k + 1,
+            batch.R, k, comp_size, hist_bases=on.bases,
         )
     return scan_runs_resident(
         g4, gn, _put(gs, dev), vb, *common, batch.R, k, comp_size,
@@ -1006,8 +997,8 @@ def scan_batches(
     # and compile cost): column c's window scores lie in [base_c, top_c],
     # the sums of its PWM positions' minima and maxima, or are the N-window
     # value min_scores[c].  Device bin 0 holds the N value and bin 1 + i
-    # the score base_c + i (ops/score_runs._finish_scores); _absorb_comp
-    # expands them.  PWM entries are integers, exact in f32.
+    # the score base_c + i (ops/hist.remap, applied by hist.cu on load);
+    # _absorb_comp expands them.  PWM entries are integers, exact in f32.
     pwm_np = np.asarray(pwm_kernel)
     hist_bases = pwm_np.min(axis=1).sum(axis=0).astype(np.int64)
     hist_tops = pwm_np.max(axis=1).sum(axis=0).astype(np.int64)

@@ -1,6 +1,6 @@
 """The port's CLI (``python -m grafimo_tpu_torch``) against the
-reference's on the toy data: byte-identical TSV and GFF3 reports from
-both engines, the two engines against each other, a run with JAX blocked
+reference's on the toy data: byte-identical TSV, GFF3 and HTML reports
+from both engines, the two engines against each other, a run with JAX blocked
 from import, ``--profile``, and the loud failures (no card behind
 ``--device cuda``, multi-host flags missing their settings, the window
 engine over several processes, ``buildvg --export``)."""
@@ -76,7 +76,7 @@ def test_reports_byte_identical(input_dir, tmp_path, toy_bed, flow,
     assert ref_main(
         _findmotif_args(input_dir, g_ref, toy_bed, flow, tmp_path / "ref")
     ) == 0
-    for name in ("grafimo_out.tsv", "grafimo_out.gff"):
+    for name in ("grafimo_out.tsv", "grafimo_out.gff", "grafimo_out.html"):
         got = (tmp_path / "port" / name).read_bytes()
         assert len(got.splitlines()) > 1
         assert got == (tmp_path / "ref" / name).read_bytes(), name
@@ -103,9 +103,9 @@ def test_multi_width_reports_byte_identical(input_dir, tmp_path, toy_bed,
         ]) == 0
         outs[name] = {
             p.name: p.read_bytes() for p in (tmp_path / name).iterdir()
-            if p.suffix in (".tsv", ".gff")
+            if p.suffix in (".tsv", ".gff", ".html")
         }
-    assert len(outs["port"]) == 6  # a TSV and a GFF3 per motif
+    assert len(outs["port"]) == 9  # a TSV, a GFF3 and an HTML per motif
     assert outs["port"] == outs["ref"]
 
 

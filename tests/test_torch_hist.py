@@ -1,7 +1,9 @@
 """The port's exact histogram (``grafimo_tpu_torch/ops/hist.py``) against
 the reference's: numpy ``bincount``, the XLA ``_exact_hist`` path and
-every Pallas histogram kernel in interpret mode.  Tolerance 0: every
-quantity compared is an integer count."""
+every Pallas histogram kernel in interpret mode; with ``bases``, against
+the torch remap followed by the histogram and the reference's compressed
+``_finish_scores`` histogram.  Tolerance 0: every quantity compared is an
+integer count."""
 
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ from grafimo_tpu.ops.pallas_hist import (
     hist_pallas3,
     hist_pallas4,
 )
-from grafimo_tpu.ops.score_runs import _exact_hist
+from grafimo_tpu.ops.score_runs import _exact_hist, _finish_scores
 from grafimo_tpu_torch.ops import hist as th
 
 torch.set_num_threads(1)
@@ -109,6 +111,65 @@ def test_exact_hist_on_cpu_takes_the_plain_version():
     np.testing.assert_array_equal(got.numpy(), _numpy_hist(s, 301))
 
 
+def _compressed_scores(seed, m):
+    """A masked score plane as the run engine hands it over, with each
+    column's base and compressed bin count: scores in [base, top], N-window
+    values below the base, -1 invalid, and the top and base themselves."""
+    rng = np.random.default_rng(seed)
+    bases = rng.integers(100, 3000, m).astype(np.int32)
+    spans = rng.integers(50, 4000, m).astype(np.int32)
+    tops = bases + spans - 1
+    s = (bases + rng.integers(0, spans, (7, 90, m))).astype(np.int32)
+    roll = rng.random(s.shape)
+    s[roll < 0.05] = -1
+    s = np.where(roll > 0.97, bases - rng.integers(1, 90, s.shape), s)
+    s[0, :3] = [bases - 1, bases, tops]  # bin 0, bin 1, the top bin
+    s[1, 0] = -1
+    return s.astype(np.int32), bases, int(spans.max()) + 1
+
+
+def _torch_remap(s, bases):
+    """The run engine's remap as torch ops, before the histogram took it."""
+    return torch.where(s < 0, -1, torch.clamp(s - bases + 1, min=0))
+
+
+@pytest.mark.parametrize("m", [1, 2, 5])
+def test_bases_remap_matches_torch_remap(m):
+    s, bases, hs = _compressed_scores(60 + m, m)
+    st, bt = torch.from_numpy(s), torch.from_numpy(bases)
+    th.reset_counts()
+    got = th.exact_hist(st, hs, bt)
+    assert th.COUNTS == {"kernel": 0, "plain": 1}
+    want = th.exact_hist(_torch_remap(st, bt).contiguous(), hs)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    got = got.numpy()
+    assert got[0].sum() > 0  # N-window values below the base: bin 0
+    assert got[hs - 1].sum() > 0  # the top bin
+    assert got.sum() == (s >= 0).sum()  # only the -1 entries dropped
+
+
+@pytest.mark.parametrize("m", [1, 2, 5])
+def test_bases_remap_matches_reference_finish_scores(m):
+    """The compressed histogram of the reference's ``_finish_scores`` with
+    ``hist_bases`` (no N plane, every offset valid: the scores pass to
+    its remap as they are)."""
+    s, bases, hs = _compressed_scores(70 + m, m)
+    want, _ = _finish_scores(
+        jnp.asarray(s), None, None, jnp.zeros(m, jnp.int32),
+        jnp.zeros(m, jnp.int32), 1, hs, allow_pallas=False,
+        hist_bases=jnp.asarray(bases))
+    got = th.exact_hist(torch.from_numpy(s), hs, torch.from_numpy(bases))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_bases_are_checked():
+    s = torch.zeros((4, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"bases must be \(3,\)"):
+        th.exact_hist(s, 8, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(TypeError, match="bases must be int32"):
+        th.exact_hist(s, 8, torch.zeros(3, dtype=torch.int64))
+
+
 def test_exact_hist_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         th.exact_hist(torch.zeros((4, 2), dtype=torch.int32, device="meta"), 8)
@@ -129,6 +190,23 @@ def test_kernel_matches_plain_on_card(m, hist_size):
     th.reset_counts()
     got = th.exact_hist(dev, hist_size)
     want = th.exact_hist_reference(dev, hist_size)
+    torch.cuda.synchronize()
+    assert th.COUNTS == {"kernel": 1, "plain": 1}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 16, 40])
+def test_kernel_remap_matches_plain_on_card(m):
+    """On a card: the kernel's remap on load bit-identical to the plain
+    version's, in one block, and in column groups (M = 16, 40)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s, bases, hs = _compressed_scores(80 + m, m)
+    dev, bdev = torch.from_numpy(s).cuda(), torch.from_numpy(bases).cuda()
+    th.reset_counts()
+    got = th.exact_hist(dev, hs, bdev)
+    want = th.exact_hist_reference(dev, hs, bdev)
     torch.cuda.synchronize()
     assert th.COUNTS == {"kernel": 1, "plain": 1}
     assert torch.equal(got, want)

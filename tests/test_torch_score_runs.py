@@ -42,12 +42,15 @@ def _genome(rng, length, n_frac=0.01):
     return codes, nmask, g4, gn
 
 
-def _motif_inputs(rng, k, m, remap):
+def _motif_inputs(rng, k, m, remap, cut=0.6):
+    """A random PWM, its min scores, cutoffs ``cut`` of the way from each
+    column's least to its greatest score, and the histogram's bases and
+    size for ``remap``."""
     pwm = rng.integers(0, 1001, (k, 4, m)).astype(np.float32)
     lo = pwm.min(axis=1).sum(axis=0).astype(np.int64)
     hi = pwm.max(axis=1).sum(axis=0).astype(np.int64)
     mins = lo.astype(np.int32)
-    cuts = (lo + (hi - lo) * 0.6).astype(np.int32)
+    cuts = (lo + (hi - lo) * cut).astype(np.int32)
     if remap == "none":
         bases, hs = None, 1000 * k + 1
     elif remap == "zero":  # what scan_batches runs: bins shifted by one

@@ -15,7 +15,16 @@ give them:
 - one region of the window engine's device work: in a tree without the
   fused entry ``score_packed_hist``, what the window engine ran before it
   (scores, clamp, a fresh histogram, the int64 add), else the fused
-  launch.
+  launch;
+- the run engine's histogram at compressed bins (CTCF M = 2, random
+  k = 19 motifs of M = 16 and 40): in a tree whose ``exact_hist`` takes no
+  ``bases``, the torch remap it ran before, then the histogram;
+- a run-engine slice block of each of the five batch kinds (8192 rows of
+  R = 2048 over 10 Mbp of seeded sequence with N runs; the strided kind
+  as many rows as it holds; CTCF forward and
+  reverse complement, validity bits, 16 patch slots, two splice pairs):
+  the tree's ``scan_runs_*`` function, its scores and compressed
+  histogram, whatever it launches for them.
 
 Per case: the median of 10 single calls and the mean of 100 calls issued
 back to back (CUDA events), and the device time per call of everything
@@ -82,6 +91,92 @@ def _timed(torch, fn):
     )
     return {"ms": sorted(single)[5], "ms_back_to_back": a.elapsed_time(b) / 100,
             "device_ms": device_us / 20 / 1e3}
+
+
+def _run_engine_cases(torch, rng, dev, case, th, lut2, min_score):
+    """The compressed histogram and the five batch kinds' slice blocks."""
+    import inspect
+    import types
+
+    from grafimo_tpu_torch import runscan
+    from grafimo_tpu_torch.ops import score_runs as sr
+
+    takes_bases = "bases" in inspect.signature(th.exact_hist).parameters
+
+    def comp_hist(s, hs, bases):
+        if takes_bases:
+            return th.exact_hist(s, hs, bases)
+        return th.exact_hist(
+            torch.where(s < 0, -1, torch.clamp(s - bases + 1, min=0)), hs)
+
+    def compressed(lut):
+        bases = lut.amin(dim=1).sum(dim=0).to(torch.int32)
+        return bases, int((lut.amax(dim=1).sum(dim=0) - bases).max()) + 2
+
+    for name, k, m, lut in [("CTCF k=19 M=2", 19, 2, lut2),
+                            ("M=16 k=19", 19, 16, None),
+                            ("M=40 k=19", 19, 40, None)]:
+        if lut is None:
+            lut = torch.from_numpy(
+                rng.integers(0, 1001, (k, 4, m)).astype(np.int32)).to(dev)
+        codes = torch.from_numpy(rng.integers(0, 4, (2048, 2048))).to(dev)
+        s = sr._window_scores(codes, lut, k).to(torch.int32).contiguous()
+        bases, hs = compressed(lut)
+        case(f"hist compressed bins {name}",
+             lambda: comp_hist(s, hs, bases))
+        del s, codes
+        torch.cuda.empty_cache()
+
+    seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), 10_000_000)
+    for start in rng.integers(0, len(seq) - 64, 2000):
+        seq[start : start + int(rng.integers(1, 20))] = ord("N")
+    planes = runscan._resident_genome(
+        types.SimpleNamespace(seq=seq.tobytes().decode("ascii")))
+    g4, gn = sr.genome_planes_to_device(*planes, dev)
+    b, r, k = 8192, 2048, 19
+    noff = r - k + 1
+    mins = torch.tensor([min_score] * 2, dtype=torch.int32, device=dev)
+    bases, hs = compressed(lut2)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    vb = put(sr.pack_bits(rng.random((b, noff)) < 0.95))
+    starts = rng.integers(0, len(seq) - r, b)
+    gs = put(starts.astype(np.int32))
+    table = np.zeros(256, np.uint8)  # N reads as A under its N bit
+    table[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    rows = seq[starts[:, None] + np.arange(r)]
+    packed = put(sr.pack_run_seqs(table[rows]))
+    nbits = put(sr.pack_bits(rows == ord("N")))
+    del rows
+    ent = rng.integers(0, r, (b, 16)) * 4 + rng.integers(0, 4, (b, 16))
+    pt = put(np.where(rng.random((b, 16)) < 0.5, ent, -1).astype(np.int16))
+    bounds = np.sort(rng.integers(2, r - 2, (b, 2)), axis=1)
+    shifts = rng.integers(-40, 41, (b, 2))
+    sp = put(np.stack([bounds, shifts], axis=2).reshape(b, 4)
+             .astype(np.int16))
+    # the strided kind: as many rows as the sequence holds
+    bs = min(b, (len(seq) - r) // noff - 1)
+    lo = int(rng.integers(0, len(seq) - bs * noff - r))
+    blocks = {
+        "packed": lambda: sr.scan_runs_device(
+            packed, nbits, vb, lut2, mins, k, hs, hist_bases=bases),
+        "gathered": lambda: sr.scan_runs_resident(
+            g4, gn, gs, vb, lut2, mins, r, k, hs, hist_bases=bases),
+        "strided": lambda: sr.scan_runs_resident_strided(
+            g4, gn, lo, vb[:bs], lut2, mins, bs, noff, r, k, hs,
+            hist_bases=bases),
+        "patched": lambda: sr.scan_runs_resident_patched(
+            g4, gn, gs, pt, vb, lut2, mins, r, k, hs, hist_bases=bases),
+        "spliced": lambda: sr.scan_runs_resident_spliced(
+            g4, gn, gs, sp, pt, vb, lut2, mins, r, k, hs,
+            hist_bases=bases),
+    }
+    for kind, fn in blocks.items():
+        rows = bs if kind == "strided" else b
+        case(f"run engine block {kind} ({rows}, {r}) CTCF M=2", fn)
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -170,6 +265,8 @@ def main() -> int:
             h = th.exact_hist(scores.clamp(max=19000), 19001)
             hist_dev[:, 0] += h[:, 0]
     case(f"window engine region B={WINDOW_BATCH} (device work)", one_region)
+    del big, hist_dev
+    _run_engine_cases(torch, rng, dev, case, th, lut2, min_score)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     return 0
