@@ -4,9 +4,9 @@ NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases, in order (phase 14 runs right after phase 5, whose chromosome
-it needs, before any phase that profiles); any failure raises and the
-script exits non-zero:
+Phases, in order (phases 14 and 15 run right after phase 5, whose
+chromosome they need, before any phase that profiles); any failure
+raises and the script exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name and power limit,
    pandas, and the port's C++ engine (built with g++ on first use);
@@ -17,13 +17,15 @@ script exits non-zero:
    bins past one block), and -- after phase
    5 -- on real CTCF scores of phase 5's chromosome (the peaked case);
 4. ``scan_batches`` over a seeded mix of all five batch kinds on the card
-   and on the CPU: identical histograms and hits;
+   and on the CPU: identical histograms and hits, one fused launch a
+   block on the card, the plain version on the CPU;
 5. the main path at chromosome scale: a synthetic chromosome at the
    1KGP profile (``grafimo_tpu_torch/utils/synth.py``), ``buildvg``, then
    a whole-chromosome CTCF ``findmotif`` through the port's CLI on the
-   card, which must launch the histogram kernel and never its plain
-   version; then a 1 Mbp region around the first dense pocket on the
-   card and on the CPU, whose reports must be byte-identical;
+   card, which must make exactly one fused ``scan_runs.cu`` launch a
+   slice block and no other scoring, counting or compaction launch and
+   no plain version; then a 1 Mbp region around the first dense pocket on
+   the card and on the CPU, whose reports must be byte-identical;
 6. the packed-window kernel against its plain versions on the card, bit
    for bit: scores only, at the window engine's chunk shape and around it
    (fwd + RC columns, k = 8 and 30, M = 16, N and PAD rows, a ragged B,
@@ -40,8 +42,8 @@ script exits non-zero:
    graph over a seeded set of 1,000 peak-sized regions: on the card,
    where it must launch the fused kernel once per region, and neither a
    plain version nor a separate histogram, then on the CPU, whose report
-   must be byte-identical, then the run engine on the card, whose report
-   must hold the same rows;
+   must be byte-identical, then the run engine on the card (one fused
+   launch a slice block), whose report must hold the same rows;
 9. the run engine split over a device list at phase 5's size:
    ``scan_batches`` on one device and on two shards of cuda:0 (and on
    every card when there are several), identical histograms and hits,
@@ -55,8 +57,9 @@ script exits non-zero:
     interpreter with jax and ``grafimo_tpu`` blocked): the peak set and a
     one-region BED (rank 1 scans nothing); rank 0's reports must be the
     one-process ones byte for byte;
-12. ``--profile``: the trace exists and names the histogram kernel; the
-    report is unchanged;
+12. ``--profile``: the trace exists and names the fused scoring kernel
+    and none of the three-launch route's kernels; the report is
+    unchanged;
 13. the run engine's device half: the hit-compaction kernel against its
     plain version at the run engine's slice shapes of real CTCF scores of
     phase 5's chromosome, with no hits, sparse hits (p < 1e-4, in the
@@ -78,14 +81,31 @@ script exits non-zero:
     entries at 1020 and a LUT tiled over columns; empty, full and
     repeated patch slots, negative splice shifts, an unused pair before a
     used one, a patch over an N base, an all-invalid row.  The
-    ``conv1d`` yardstick (TF32 off) equals each once masked.
+    ``conv1d`` yardstick (TF32 off) equals each once masked;
+15. the run engine's slice-block entry, ``scan_block`` (the fused
+    ``scan_runs.cu`` launch that scores, counts and compacts), against
+    its plain version, bit for bit (histogram, count and hit bits exact,
+    indices equal once sorted): all five kinds at the main path's block,
+    the hit tiers (flush read, the block's indices, past the index
+    capacity at p < 1e-3, dense at ``-t 1``), M = 16 and 40 in column
+    groups, both sides of the bin count at which a column stops fitting
+    one block, and k = 70 on the route the plan gives it; beside each,
+    the three launches it replaces, timed in the same call;
+16. the three-launch route end to end: a 70-wide motif whose bins
+    outgrow one block on 100 kbp of phase 5's chromosome, one unfused
+    ``scan_runs.cu``, one ``hist.cu`` (on a cluster) and one
+    ``compact.cu`` launch a slice block and no fused launch on the card,
+    the cuda TSV and GFF3 byte-identical to the cpu ones.
 
 Phase 5's whole-chromosome run and phase 9's scans also check the
 device->host reads (``runscan.READS``): one per device and flush block of
 slices, one per block denser than the flush read's index tier, and one
-histogram read per device, never one per slice; and one scoring and one
-compaction launch per histogram launch, no plain version (phases 4, 10,
-11 and 12 too: a slice block is three launches).
+histogram read per device, never one per slice.  Phases 4, 5, 8, 9, 10,
+11 and 12 check the launches: one fused ``scan_runs.cu`` launch a slice
+block on the run engine's paths, no unfused scoring, no ``hist.cu`` or
+``compact.cu`` launch and no plain version there (``hist.cu`` and
+``compact.cu`` are held in phases 3, 7 and 13, and beside each case of
+phase 15).
 
 Each kernel case prints its time as the median of 10 single launches and
 as the mean of 100 back-to-back launches (CUDA events), its device time
@@ -93,9 +113,11 @@ per launch (``torch.profiler``), the plain version's time, the time of
 one PyTorch call computing the same function where there is one
 (``torch.bincount`` for the histogram, ``torch.nonzero`` of the hit
 predicate for the compaction, ``conv1d`` of the one-hot rows for the
-scoring core), and its bound: the bytes the function must move over the
-card's 3.35 TB/s, or its integer adds over 67 T/s where those take
-longer.
+scoring core; none scores, counts and compacts a slice block in one
+call), and its bound: the bytes the function must move over the
+card's 3.35 TB/s, or its int32 adds over 16.75 T/s (a quarter of the
+67 TFLOP/s float32 rate: an SM issues 64 int32 adds a clock against 128
+float32 FMAs) where those take longer.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -234,12 +256,15 @@ def _back_to_back_ms(torch, fn, reps=100):
     return a.elapsed_time(b) / reps
 
 
-def _device_ms(torch, fn, kernel, reps=20):
-    """Device time of one launch of the CUDA kernel named ``kernel``, from
-    ``torch.profiler`` over ``reps`` calls; None when the profiler shows no
-    device time for it."""
+def _device_ms(torch, fn, kernel, reps=20, per_call=False):
+    """Device time of one launch of the CUDA kernel named ``kernel``, or,
+    with ``per_call``, of all the launches of the kernels named in the
+    tuple ``kernel`` that one call of ``fn`` makes, from ``torch.profiler``
+    over ``reps`` calls; None when the profiler shows no device time for
+    them."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     try:
@@ -252,11 +277,13 @@ def _device_ms(torch, fn, kernel, reps=20):
         return None
     total = count = 0
     for evt in prof.key_averages():
-        if kernel in evt.key:
+        if any(name in evt.key for name in names):
             total += getattr(evt, "device_time_total", None) or getattr(
                 evt, "cuda_time_total", 0)
             count += evt.count
-    return total / count / 1e3 if count and total else None
+    if not (count and total):
+        return None
+    return total / (reps if per_call else count) / 1e3
 
 
 def _timings(torch, fn, kernel, plain=None, library=None):
@@ -506,11 +533,12 @@ def phase_cuda_vs_cpu(torch):
                               torch.device(dev))
         results[dev] = (res, time.perf_counter() - t0)
         scans[dev] = dict(sr.COUNTS)
-    if (scans["cuda"]["kernel"] <= 0 or scans["cuda"]["plain"]
-            or scans["cpu"] != {"kernel": 0,
-                                "plain": scans["cuda"]["kernel"]}):
+    if (scans["cuda"] != {"kernel": 0, "fused": len(batches), "plain": 0}
+            or scans["cpu"] != {"kernel": 0, "fused": 0,
+                                "plain": len(batches)}):
         raise RuntimeError(f"five-kind mix: scan_runs counts {scans}, want "
-                           f"the kernel on cuda and the plain version on cpu")
+                           f"one fused launch a block on cuda and the plain "
+                           f"version on cpu")
     (gc, tc), (cc, tcpu) = results["cuda"], results["cpu"]
     if not np.array_equal(gc.hists, cc.hists):
         raise RuntimeError("port cuda != port cpu: histograms differ")
@@ -520,8 +548,8 @@ def phase_cuda_vs_cpu(torch):
         raise RuntimeError("five-kind mix produced no windows or no hits")
     log(f"five-kind mix: port cuda == port cpu ({int(gc.hists.sum())} "
         f"window-strands, {len(gc.hits)} hits; cuda {tc:.2f}s, "
-        f"cpu {tcpu:.2f}s host wall; {scans['cuda']['kernel']} scan_runs.cu "
-        f"launches on cuda, its plain version on cpu)")
+        f"cpu {tcpu:.2f}s host wall; {scans['cuda']['fused']} fused "
+        f"scan_runs.cu launches on cuda, the plain version on cpu)")
 
 
 def _findmotif(argv):
@@ -576,6 +604,44 @@ def _n_slices(batches, m, n_devices):
         -(-len(b.chunks) // (max(1, cap // b.R) * n_devices)) for b in batches)
 
 
+def _one_fused_launch_a_block(what, blocks=None):
+    """The run engine's launches since the counts were last reset: one
+    fused scan_runs.cu launch a slice block (``blocks`` of them when
+    given), and no unfused scoring, ``hist.cu``, ``compact.cu`` or plain
+    version."""
+    from grafimo_tpu_torch.ops import compact, hist
+    from grafimo_tpu_torch.ops import score_runs as sr
+
+    fused = sr.COUNTS["fused"]
+    if (fused <= 0 or (blocks is not None and fused != blocks)
+            or sr.COUNTS["kernel"] or sr.COUNTS["plain"]
+            or hist.COUNTS != {"kernel": 0, "plain": 0}
+            or compact.COUNTS != {"kernel": 0, "plain": 0}):
+        raise RuntimeError(
+            f"{what}: scan_runs {dict(sr.COUNTS)}, hist {dict(hist.COUNTS)}, "
+            f"compact {dict(compact.COUNTS)}; want one fused launch a slice "
+            f"block" + (f" ({blocks})" if blocks is not None else "")
+            + " and nothing else")
+    return fused
+
+
+def _n_blocks(batches, m, n_devices):
+    """The non-empty blocks ``runscan.scan_batches`` launches for
+    ``batches`` on ``n_devices`` devices: each slice's rows split into one
+    contiguous block a device."""
+    import grafimo_tpu_torch.runscan as rb
+    from grafimo_tpu_torch.device import split_rows
+
+    cap = rb.MAX_BASES_PER_DISPATCH // max(1, m // 4)
+    blocks = 0
+    for b in batches:
+        per = max(1, cap // b.R) * n_devices
+        for lo in range(0, len(b.chunks), per):
+            rows = min(per, len(b.chunks) - lo)
+            blocks += sum(b0 != b1 for b0, b1 in split_rows(rows, n_devices))
+    return blocks
+
+
 def phase_main_path(torch, wd):
     import grafimo_tpu_torch.runscan as rb
     from grafimo_tpu_torch.ops import compact, hist
@@ -613,22 +679,11 @@ def phase_main_path(torch, wd):
     launches = dict(hist.COUNTS)
     compactions = dict(compact.COUNTS)
     reads = dict(rb.READS)
-    if launches["kernel"] <= 0 or launches["plain"] != 0:
-        raise RuntimeError(f"main path did not run on the kernel: {launches}")
-    if (compactions["kernel"] != launches["kernel"]
-            or compactions["plain"] != 0):
-        raise RuntimeError(f"main path did not compact every block on the "
-                           f"kernel: {compactions}, {launches}")
-    if scans != {"kernel": launches["kernel"], "plain": 0}:
-        raise RuntimeError(f"main path did not score every block on the "
-                           f"kernel: scan_runs {scans}, hist {launches}")
     graph = load_graph_file(os.path.join(gdir, "21.gvt.npz"))
     batches = rb.batch_runs(rb.build_region_runs(
         graph, "21", [(0, synth["length"])], 19), 19)
     slices = _n_slices(batches, 2, 1)
-    if slices != launches["kernel"]:
-        raise RuntimeError(f"{slices} slices but {launches['kernel']} "
-                           f"blocks launched")
+    _one_fused_launch_a_block("whole-chromosome findmotif", slices)
     read_line = _check_reads(
         "whole-chromosome findmotif", reads,
         -(-slices // rb.SCAN_FLUSH_SLICES), 1)
@@ -644,10 +699,9 @@ def phase_main_path(torch, wd):
         f"{windows / scan_s:.0f} windows/strand/s, peak RSS {rss_gb:.2f} GB "
         f"(whole smoke process), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"scoring kernel launches {scans['kernel']}, plain {scans['plain']}; "
-        f"histogram kernel launches {launches['kernel']}, plain "
-        f"{launches['plain']}; compaction kernel launches "
-        f"{compactions['kernel']}, plain {compactions['plain']}; {slices} "
+        f"fused scan_runs.cu launches {scans['fused']} (unfused "
+        f"{scans['kernel']}, plain {scans['plain']}); hist.cu launches "
+        f"{launches['kernel']}, compact.cu {compactions['kernel']}; {slices} "
         f"slices, {read_line}; mismatch guard passed")
 
     pocket_lo, pocket_hi = synth["pockets"][0]
@@ -669,8 +723,7 @@ def phase_main_path(torch, wd):
     if reports["cuda"][0] != reports["cpu"][0]:
         raise RuntimeError("1 Mbp pocket region: cuda and cpu TSVs differ")
     log("1 Mbp pocket region: cuda TSV byte-identical to cpu TSV")
-    return (launches["kernel"], compactions["kernel"], scans["kernel"], gdir,
-            synth, batches)
+    return scans["fused"], gdir, synth, batches
 
 
 def _random_packed(torch, b, k, m, gen, flag_frac=0.0, high=1001):
@@ -897,7 +950,8 @@ def phase_window_engine(torch, wd, gdir, synth):
     import numpy as np
     import pandas as pd
 
-    from grafimo_tpu_torch.ops import hist, scan_packed
+    from grafimo_tpu_torch.ops import compact, hist, scan_packed
+    from grafimo_tpu_torch.ops import score_runs as sr
 
     rng = np.random.default_rng(SEED + 4)
     span = synth["length"] // PEAKS
@@ -957,14 +1011,16 @@ def phase_window_engine(torch, wd, gdir, synth):
     log(f"window engine on cpu: wall {wall_cpu:.2f}s; cuda TSV "
         f"byte-identical to cpu TSV")
 
-    hist.reset_counts()
+    for counts in (sr, hist, compact):
+        counts.reset_counts()
     _, wall_runs, (tsv_runs, n_runs_hits) = run("runs", "cuda")
+    fused_runs = _one_fused_launch_a_block("run engine on the peak set")
     pd.testing.assert_frame_equal(_sorted_report(tsv_runs),
                                   _sorted_report(tsv_cuda), check_exact=True)
     log(f"run engine on cuda: {n_runs_hits} hits, wall {wall_runs:.2f}s, "
-        f"histogram kernel launches {hist.COUNTS['kernel']}; report equal "
-        f"to the window engine's when sorted")
-    return launches["scan_packed"]["kernel"]
+        f"fused scan_runs.cu launches {fused_runs}; report equal to the "
+        f"window engine's when sorted")
+    return launches["scan_packed"]["kernel"], fused_runs
 
 
 def _ctcf_scan_inputs(threshold=1e-4):
@@ -1036,16 +1092,6 @@ def phase_multi_device(torch, wd, gdir, batches):
     results = {}
     launches = {}
     reads = {}
-    def on_kernels(what):
-        """Every block scored, counted and compacted on the kernels."""
-        n = hist.COUNTS["kernel"]
-        if (n <= 0 or hist.COUNTS["plain"]
-                or compact.COUNTS != {"kernel": n, "plain": 0}
-                or sr.COUNTS != {"kernel": n, "plain": 0}):
-            raise RuntimeError(f"{what} did not run on the kernels: "
-                               f"{dict(sr.COUNTS)}, {dict(hist.COUNTS)}, "
-                               f"{dict(compact.COUNTS)}")
-
     for name in order:
         sr.reset_counts()
         hist.reset_counts()
@@ -1053,9 +1099,9 @@ def phase_multi_device(torch, wd, gdir, batches):
         rb.reset_reads()
         res = rb.scan_batches(batches, *params, configs[name])
         seconds[name].append(res.scoring_time)
-        on_kernels(f"10 Mbp scan on {name}")
-        launches[name] = hist.COUNTS["kernel"]
         devs = configs[name]
+        launches[name] = _one_fused_launch_a_block(
+            f"10 Mbp scan on {name}", _n_blocks(batches, 2, len(devs)))
         reads[name] = _check_reads(
             f"10 Mbp scan on {name}", dict(rb.READS),
             -(-_n_slices(batches, 2, len(devs)) // rb.SCAN_FLUSH_SLICES),
@@ -1070,8 +1116,7 @@ def phase_multi_device(torch, wd, gdir, batches):
     log(f"{SMOKE_MBP} Mbp scan_batches, {len(batches)} batches, "
         f"{int(want.hists.sum())} window-strands, {len(want.hits)} hits: "
         + "; ".join(f"{name}: scan {', '.join(f'{t:.3f}' for t in ts)} s, "
-                    f"{launches[name]} scan_runs.cu, hist.cu and compact.cu "
-                    f"launches, "
+                    f"{launches[name]} fused scan_runs.cu launches, "
                     f"{reads[name]}"
                     for name, ts in seconds.items())
         + "; histograms and hits identical")
@@ -1082,16 +1127,14 @@ def phase_multi_device(torch, wd, gdir, batches):
     text, wall = _entry_findmotif([
         "findmotif", "-d", gdir, "-b", os.path.join(wd, "whole.bed"),
         "-m", MOTIF, "-t", "1e-4", "-o", out, "--verbose"], one * 2)
-    entry_launches = dict(hist.COUNTS)
-    on_kernels("2-shard findmotif")
+    entry_launches = _one_fused_launch_a_block("2-shard findmotif")
     _same_report(out, os.path.join(wd, "out_whole"), "2-shard findmotif")
     m = re.search(r"run scan: .*\(([\d.]+)s\)", text)
     log(f"whole-chromosome findmotif on 2 shards of cuda:0: scan "
-        f"{m.group(1) if m else 'n/a'} s, wall {wall:.2f}s, scan_runs.cu, "
-        f"hist.cu and compact.cu launches {entry_launches['kernel']}; TSV "
-        f"and GFF3 "
+        f"{m.group(1) if m else 'n/a'} s, wall {wall:.2f}s, fused "
+        f"scan_runs.cu launches {entry_launches}; TSV and GFF3 "
         f"byte-identical to the 1-device run")
-    return entry_launches["kernel"]
+    return entry_launches
 
 
 def phase_grid(torch):
@@ -1120,7 +1163,7 @@ def phase_grid(torch):
     lut = sr.pwm_lut_from_kernel(kernel, dev)
     t_mins, t_cuts = (torch.as_tensor(x, device=dev) for x in (mins, cuts))
     launches = {"exact_hist": 0, "scan_packed": 0, "compact_hits": 0,
-                "scan_runs": 0}
+                "scan_runs": 0, "scan_runs_fused": 0}
 
     def counted(fn, *args):
         hist.reset_counts()
@@ -1132,6 +1175,7 @@ def phase_grid(torch):
         launches["scan_packed"] += scan_packed.COUNTS["kernel"]
         launches["compact_hits"] += compact.COUNTS["kernel"]
         launches["scan_runs"] += sr.COUNTS["kernel"]
+        launches["scan_runs_fused"] += sr.COUNTS["fused"]
         if (hist.COUNTS["plain"] or scan_packed.COUNTS["plain"]
                 or compact.COUNTS["plain"] or sr.COUNTS["plain"]):
             raise RuntimeError("a grid function ran a plain version on the "
@@ -1194,6 +1238,7 @@ RANK_PROG = BLOCK_JAX + (
     "print(json.dumps({'hist_launches': hist.COUNTS['kernel'], "
     "'hist_plain': hist.COUNTS['plain'], "
     "'scan_launches': score_runs.COUNTS['kernel'], "
+    "'fused_launches': score_runs.COUNTS['fused'], "
     "'scan_plain': score_runs.COUNTS['plain'], "
     "'compact_launches': compact.COUNTS['kernel'], "
     "'compact_plain': compact.COUNTS['plain']}))\n"
@@ -1270,12 +1315,11 @@ def phase_two_processes(torch, wd, gdir):
             if (counts["hist_plain"] or counts["compact_plain"]
                     or counts["scan_plain"]):
                 raise RuntimeError(f"rank {rank} ran a plain version")
-            if not (counts["compact_launches"] == counts["scan_launches"]
-                    == counts["hist_launches"]):
-                raise RuntimeError(f"rank {rank}: {counts}, want one "
-                                   f"scoring and one compaction launch per "
-                                   f"histogram launch")
-            launches += counts["hist_launches"]
+            if (counts["compact_launches"] or counts["scan_launches"]
+                    or counts["hist_launches"]):
+                raise RuntimeError(f"rank {rank}: {counts}, want one fused "
+                                   f"launch a slice block and no other")
+            launches += counts["fused_launches"]
             scan = re.search(r"run scan: .*\(([\d.]+)s\)", out)
             coll = re.search(r"cluster: rank \d/2, histogram all-reduce "
                              r"([\d.]+)s, report-row gather ([\d.]+)s", out)
@@ -1286,8 +1330,8 @@ def phase_two_processes(torch, wd, gdir):
             parts.append(
                 f"rank {rank}: {share.group(1)} regions, scan "
                 f"{scan.group(1)} s, all-reduce {coll.group(1)} s, gather "
-                f"{coll.group(2)} s, {counts['hist_launches']} hist.cu "
-                f"launches")
+                f"{coll.group(2)} s, {counts['fused_launches']} fused "
+                f"scan_runs.cu launches")
         log(f"2 processes on cuda:0, {label}: " + "; ".join(parts)
             + f"; wall {wall:.2f}s (both ranks); rank 0's TSV and GFF3 "
             f"byte-identical to the 1-process run")
@@ -1296,37 +1340,36 @@ def phase_two_processes(torch, wd, gdir):
 
 def phase_profile(torch, wd, gdir):
     """Phase 12: ``--profile DIR`` on the peak set's run engine: the
-    trace exists and names the histogram kernel, and the report is phase
-    8's."""
-    from grafimo_tpu_torch.ops import hist
+    trace exists and names the fused scoring kernel, one launch a slice
+    block, and the report is phase 8's."""
+    from grafimo_tpu_torch.ops import compact, hist
     from grafimo_tpu_torch.ops import score_runs as sr
 
     pdir = os.path.join(wd, "profile")
     out = os.path.join(wd, "out_profiled")
-    hist.reset_counts()
-    sr.reset_counts()
+    for counts in (sr, hist, compact):
+        counts.reset_counts()
     _, wall = _findmotif([
         "findmotif", "-d", gdir, "-b", os.path.join(wd, "peaks.bed"),
         "-m", MOTIF, "-t", "1e-4", "-o", out, "--device", "cuda",
         "--profile", pdir])
-    launches = hist.COUNTS["kernel"]
-    if sr.COUNTS != {"kernel": launches, "plain": 0}:
-        raise RuntimeError(f"--profile run: scan_runs {dict(sr.COUNTS)}, "
-                           f"{launches} histogram launches")
+    launches = _one_fused_launch_a_block("--profile run")
     trace = os.path.join(pdir, "grafimo_rank0.pt.trace.json")
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events
-               if "exact_hist_kernel" in str(e.get("name", ""))]
+               if "scan_runs_fused_kernel" in str(e.get("name", ""))]
     if not kernels:
-        raise RuntimeError(f"{trace} names no exact_hist_kernel")
-    for name in ("compact_hits_kernel", "scan_runs_kernel"):
-        if not any(name in str(e.get("name", "")) for e in events):
-            raise RuntimeError(f"{trace} names no {name}")
+        raise RuntimeError(f"{trace} names no scan_runs_fused_kernel")
+    # the three-launch route's kernels ran nowhere in this run
+    for name in THREE_KERNELS:
+        if any(name in str(e.get("name", "")) for e in events):
+            raise RuntimeError(f"{trace} names {name}, which this run did "
+                               f"not launch")
     _same_report(out, os.path.join(wd, "out_peaks_runs_cuda"),
                  "--profile run")
     log(f"--profile: {trace} ({os.path.getsize(trace)} bytes, "
-        f"{len(events)} events, {len(kernels)} of exact_hist_kernel, "
+        f"{len(events)} events, {len(kernels)} of scan_runs_fused_kernel, "
         f"{launches} launches counted), wall {wall:.2f}s; report "
         f"byte-identical to the run without it")
     return launches
@@ -1550,6 +1593,75 @@ def phase_device_half(torch, wd, gdir):
     return compact_cases, hist_cases
 
 
+WIDE_K = 70  # a motif wide enough that one column's bins outgrow a block
+
+
+def _wide_motif(path):
+    """A MEME file of one 70-wide motif, each position 0.97 on one base:
+    its scores span ~65,700 compressed bins, more than one block's shared
+    memory holds beside the fused kernel's tables."""
+    rows = []
+    for j in range(WIDE_K):
+        probs = [0.01] * 4
+        probs[j % 4] = 0.97
+        rows.append(" ".join(f"{x:.6f}" for x in probs))
+    with open(path, "w") as f:
+        f.write("MEME version 4\n\nALPHABET= ACGT\n\nstrands: + -\n\n"
+                "Background letter frequencies\nA 0.25 C 0.25 G 0.25 "
+                "T 0.25\n\nMOTIF WIDE70 wide\nletter-probability matrix: "
+                f"alength= 4 w= {WIDE_K} nsites= 100 E= 0\n"
+                + "\n".join(rows) + "\n")
+
+
+def phase_three_launch_route(torch, wd, gdir, synth):
+    """Phase 16: the run engine's three-launch route end to end -- a
+    70-wide motif whose bins outgrow one block (``fused_plan`` sends it to
+    the unfused ``scan_runs.cu``, ``hist.cu`` on a cluster of blocks and
+    ``compact.cu``) on 100 kbp of phase 5's chromosome before its first
+    pocket (inside one, a 70 bp window spans so many variant sites that
+    the haplotype windows run to hundreds of millions): one launch of each
+    a slice block, no fused launch and no plain version on the card, and
+    the cuda TSV and GFF3 byte-identical to the cpu ones.  Returns the
+    launches of each kernel on the card."""
+    from grafimo_tpu_torch.ops import compact, hist
+    from grafimo_tpu_torch.ops import score_runs as sr
+
+    motif = os.path.join(wd, "wide70.meme")
+    _wide_motif(motif)
+    lo = synth["pockets"][0][0] // 2
+    bed = os.path.join(wd, "wide.bed")
+    with open(bed, "w") as f:
+        f.write(f"chr21\t{lo}\t{lo + 100_000}\n")
+    reports, launches = {}, None
+    for dev in ("cuda", "cpu"):
+        for counts in (sr, hist, compact):
+            counts.reset_counts()
+        outdir = os.path.join(wd, f"out_wide_{dev}")
+        _, dt = _findmotif([
+            "findmotif", "-d", gdir, "-b", bed, "-m", motif, "-t", "1e-3",
+            "-o", outdir, "--verbose", "--device", dev])
+        reports[dev] = _report(outdir)[0]
+        with open(os.path.join(outdir, "grafimo_out.gff"), "rb") as f:
+            reports[dev] += f.read()
+        if dev == "cuda":
+            n = sr.COUNTS["kernel"]
+            launches = {"scan_runs": n, "exact_hist": hist.COUNTS["kernel"],
+                        "compact_hits": compact.COUNTS["kernel"]}
+            if (n <= 0 or sr.COUNTS != {"kernel": n, "fused": 0, "plain": 0}
+                    or hist.COUNTS != {"kernel": n, "plain": 0}
+                    or compact.COUNTS != {"kernel": n, "plain": 0}):
+                raise RuntimeError(
+                    f"70-wide motif: scan_runs {dict(sr.COUNTS)}, hist "
+                    f"{dict(hist.COUNTS)}, compact {dict(compact.COUNTS)}; "
+                    f"want the three launches a slice block")
+        log(f"70-wide motif on 100 kbp from {lo} on {dev}: wall {dt:.2f}s")
+    if reports["cuda"] != reports["cpu"]:
+        raise RuntimeError("70-wide motif: cuda and cpu reports differ")
+    log(f"70-wide motif: the three-launch route, {launches} launches on "
+        f"cuda; TSV and GFF3 byte-identical to cpu's")
+    return launches
+
+
 KINDS = ("packed", "gathered", "strided", "patched", "spliced")
 # int32 adds outside the tensor cores: an H100 SM issues 64 a clock against
 # 128 float32 FMAs, so a quarter of the data sheet's 67 TFLOP/s float32
@@ -1632,28 +1744,25 @@ def _kind_batch(torch, kind, genome, b, r, k, rng, masks=True, n_slots=16):
         packed = put(sr.pack_run_seqs(codes[idx]))
         nbits = put(sr.pack_bits(nmask[idx])) if masks else None
         return dict(
-            b=b, r=r, vb=vb, head=(packed, nbits, vb), tail=(k,), source=0,
-            rows=dict(packed=packed, nbits=nbits),
-            fn=sr.scan_runs_device, plain=sr.scan_runs_device_reference,
-            expand=lambda: sr.rows_packed(packed, nbits))
+            b=b, r=r, vb=vb, head=(packed, nbits, vb), tail=(k,),
+            rows=sr.packed_rows(packed, nbits),
+            fn=sr.scan_runs_device, plain=sr.scan_runs_device_reference)
     if kind == "strided":
         lo = int(rng.integers(0, length - b * noff - r + 1))
         return dict(
             b=b, r=r, vb=vb, head=(g4, gn, lo, vb), tail=(b, noff, r, k),
-            source=2, rows=dict(genome=g4, ngenome=gn, lo=lo, stride=noff),
+            rows=sr.strided_rows(g4, gn, lo, b, noff, r),
             fn=sr.scan_runs_resident_strided,
-            plain=sr.scan_runs_resident_strided_reference,
-            expand=lambda: sr.rows_strided(g4, gn, lo, b, noff, r))
+            plain=sr.scan_runs_resident_strided_reference)
     gstart = rng.integers(0, length - r, b).astype(np.int32)
     npos = np.flatnonzero(nmask)
     gstart[2] = npos[(npos >= 100) & (npos < length - r)][0] - 100
     gs = put(gstart)
     if kind == "gathered":
         return dict(
-            b=b, r=r, vb=vb, head=(g4, gn, gs, vb), tail=(r, k), source=1,
-            rows=dict(genome=g4, ngenome=gn, gstart=gs),
-            fn=sr.scan_runs_resident, plain=sr.scan_runs_resident_reference,
-            expand=lambda: sr.rows_resident(g4, gn, gs, r))
+            b=b, r=r, vb=vb, head=(g4, gn, gs, vb), tail=(r, k),
+            rows=sr.resident_rows(g4, gn, gs, r),
+            fn=sr.scan_runs_resident, plain=sr.scan_runs_resident_reference)
     used = np.arange(n_slots)[None, :] < rng.integers(0, n_slots + 1,
                                                       (b, 1))
     used[0], used[1], used[2] = False, True, np.arange(n_slots) == 0
@@ -1664,11 +1773,9 @@ def _kind_batch(torch, kind, genome, b, r, k, rng, masks=True, n_slots=16):
     if kind == "patched":
         return dict(
             b=b, r=r, vb=vb, head=(g4, gn, gs, pt, vb), tail=(r, k),
-            source=1, rows=dict(genome=g4, ngenome=gn, gstart=gs,
-                                patches=pt),
+            rows=sr.patched_rows(g4, gn, gs, pt, r),
             fn=sr.scan_runs_resident_patched,
-            plain=sr.scan_runs_resident_patched_reference,
-            expand=lambda: sr.rows_patched(g4, gn, gs, pt, r))
+            plain=sr.scan_runs_resident_patched_reference)
     bounds = np.sort(rng.integers(2, r - 2, (b, 2)), axis=1)
     shifts = rng.integers(-40, 41, (b, 2))
     pairs = np.stack([bounds, shifts], axis=2).reshape(b, 4)
@@ -1683,11 +1790,32 @@ def _kind_batch(torch, kind, genome, b, r, k, rng, masks=True, n_slots=16):
     sp = put(splice.astype(np.int16))
     return dict(
         b=b, r=r, vb=vb, head=(g4, gn, gs, sp, pt, vb), tail=(r, k),
-        source=1, rows=dict(genome=g4, ngenome=gn, gstart=gs, patches=pt,
-                            splice=sp, clear_n=True),
+        rows=sr.spliced_rows(g4, gn, gs, sp, pt, r),
         fn=sr.scan_runs_resident_spliced,
-        plain=sr.scan_runs_resident_spliced_reference,
-        expand=lambda: sr.rows_spliced(g4, gn, gs, sp, pt, r))
+        plain=sr.scan_runs_resident_spliced_reference)
+
+
+def _block_bytes_read(torch, batch, lut):
+    """Bytes a slice block's scoring must read: descriptors, masks, the
+    LUT and minima, and the genome words the rows cover (2 bits a base in
+    the code plane, 1 in the N plane), rows that overlap sharing them; the
+    words a splice shift reaches past its row are left out, so the bound
+    stays a least one."""
+    import numpy as np
+
+    rows, b, r = batch["rows"], batch["b"], batch["r"]
+    ins = sum(x.numel() * x.element_size() for x in batch["head"]
+              if isinstance(x, torch.Tensor) and x.dim() == 2)
+    if rows.source != 0:
+        if rows.source == 1:
+            starts = rows.tensors["gstart"].cpu().numpy().astype(np.int64)
+            ins += starts.size * 4
+        else:
+            starts = rows.lo + rows.stride * np.arange(b, dtype=np.int64)
+        for name, bits in (("genome", 2), ("ngenome", 1)):
+            if rows.tensors[name] is not None:
+                ins += _words_read(rows.tensors[name], starts, r, bits)
+    return ins + lut.numel() * 4 + lut.shape[2] * 4
 
 
 def _scan_runs_case(torch, label, batch, lut, mins):
@@ -1705,8 +1833,7 @@ def _scan_runs_case(torch, label, batch, lut, mins):
     head, tail = batch["head"], batch["tail"]
 
     def kernel():
-        return sr._launch(batch["source"], b, r, k, lut, mins, vb,
-                          **batch["rows"])
+        return sr._launch(batch["rows"], k, lut, mins, vb)
 
     def plain():
         return batch["plain"](*head, lut, mins, *tail)
@@ -1718,7 +1845,7 @@ def _scan_runs_case(torch, label, batch, lut, mins):
     err = int((got.long() - want.long()).abs().max())
     if err or not (torch.equal(got, want) and torch.equal(bare, got)):
         raise RuntimeError(f"scan_runs != plain at {label}: max err {err}")
-    codes, n_ind = batch["expand"]()
+    codes, n_ind = batch["rows"].expand()
     onehot = F.one_hot(codes, 4).permute(0, 2, 1).float().contiguous()
     weight = lut.permute(2, 1, 0).float().contiguous()
 
@@ -1735,24 +1862,8 @@ def _scan_runs_case(torch, label, batch, lut, mins):
     t = _timings(torch, kernel, "scan_runs_kernel", plain=plain,
                  library=conv)
     del onehot
-    # bytes: the plane written; descriptors, masks, LUT and the genome
-    # words the rows cover (2 bits a base in the code plane, 1 in the N
-    # plane) read once, rows that overlap sharing them; the words a splice
-    # shift reaches past its row are left out, so the bound stays a least
-    # one
-    rows = batch["rows"]
-    ins = sum(x.numel() * x.element_size() for x in head
-              if isinstance(x, torch.Tensor) and x.dim() == 2)
-    if batch["source"] != 0:
-        if batch["source"] == 1:
-            starts = rows["gstart"].cpu().numpy().astype(np.int64)
-            ins += starts.size * 4
-        else:
-            starts = rows["lo"] + rows["stride"] * np.arange(b, dtype=np.int64)
-        for name, bits in (("genome", 2), ("ngenome", 1)):
-            if rows[name] is not None:
-                ins += _words_read(rows[name], starts, r, bits)
-    nbytes = got.numel() * 4 + ins + lut.numel() * 4 + m * 4
+    # bytes: the plane written, the block's inputs read once
+    nbytes = got.numel() * 4 + _block_bytes_read(torch, batch, lut)
     adds = summed * (k - 1)  # each kept window's k LUT entries summed
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = adds / INT32_ADDS_PER_S * 1e3
@@ -1826,6 +1937,240 @@ def phase_scan_runs_vs_plain(torch, wd):
     return cases
 
 
+THREE_KERNELS = ("scan_runs_kernel", "exact_hist_kernel",
+                 "compact_hits_kernel")
+
+
+def _fused_block_case(torch, label, batch, lut, mins, cuts, comp_size,
+                      bases):
+    """A slice block through ``scan_block`` on the card against its plain
+    version on the same tensors: histogram, count and hit bits exact,
+    indices equal once sorted (past the index capacity, distinct hits);
+    the route the plan gives it launched as the plan says.  Then the
+    timings of that route, of the three launches beside it ("before") and
+    of the plain version, and the bound."""
+    import numpy as np
+
+    import grafimo_tpu_torch.runscan as rb
+    from grafimo_tpu_torch import kernels
+    from grafimo_tpu_torch.ops import compact, hist
+    from grafimo_tpu_torch.ops import score_runs as sr
+
+    rows, vb = batch["rows"], batch["vb"]
+    k, m = lut.shape[0], lut.shape[2]
+    noff = rows.r - k + 1
+    smallk, topk = rb.SCAN_SMALLK, rb.SCAN_TOPK
+    plan = sr.fused_plan(m, k, rows.r, comp_size, kernels.smem_block(0))
+
+    def buffers():
+        return (torch.zeros(1, dtype=torch.int32, device="cuda"),
+                torch.full((smallk,), -1, dtype=torch.int32, device="cuda"),
+                torch.full((topk - smallk,), -1, dtype=torch.int32,
+                           device="cuda"))
+
+    got, want = buffers(), buffers()
+    for counts in (sr, hist, compact):
+        counts.reset_counts()
+    h, bits = sr.scan_block(rows, vb, lut, mins, k, cuts, comp_size, bases,
+                            *got)
+    launched = (dict(sr.COUNTS), hist.COUNTS["kernel"],
+                compact.COUNTS["kernel"])
+    fused = plan["route"] == "fused"
+    if launched != ({"kernel": int(not fused), "fused": int(fused),
+                     "plain": 0}, int(not fused), int(not fused)):
+        raise RuntimeError(f"scan_block at {label}: launches {launched} on "
+                           f"the {plan['route']} route")
+    h_want, bits_want = sr.scan_block_reference(rows, vb, lut, mins, k, cuts,
+                                                comp_size, bases, *want)
+    torch.cuda.synchronize()
+    n, n_want = int(got[0]), int(want[0])
+    err = max(abs(n - n_want), int((h.long() - h_want.long()).abs().max()),
+              int((bits.int() - bits_want.int()).abs().max()))
+    if err or not (torch.equal(h, h_want) and torch.equal(bits, bits_want)):
+        raise RuntimeError(f"scan_block != plain at {label}: counts {n} / "
+                           f"{n_want}, max err {err}")
+    kept = min(n, topk)
+    idx = torch.cat(got[1:])[:kept]
+    if n <= topk:
+        if not torch.equal(torch.sort(idx).values,
+                           torch.cat(want[1:])[:kept]):
+            raise RuntimeError(f"scan_block != plain at {label}: indices")
+    else:
+        flat = torch.from_numpy(np.flatnonzero(
+            sr.unpack_hitbits(bits.cpu().numpy(), noff)).astype(np.int32))
+        if not (torch.isin(idx.cpu(), flat).all()
+                and len(torch.unique(idx)) == kept):
+            raise RuntimeError(f"scan_block at {label}: kept indices are "
+                               f"not distinct hits")
+    if int(h.sum()) <= 0:
+        raise RuntimeError(f"scan_block at {label}: nothing counted")
+    tier = ("flush read" if n <= smallk else "block's indices" if n <= topk
+            else "hit bits")
+    del h_want, bits_want
+
+    def call():
+        sr.scan_block(rows, vb, lut, mins, k, cuts, comp_size, bases, *got)
+
+    def plain():
+        sr.scan_block_reference(rows, vb, lut, mins, k, cuts, comp_size,
+                                bases, *want)
+
+    def three():
+        s = sr._launch(rows, k, lut, mins, vb)
+        hist.exact_hist(s, comp_size, bases)
+        compact.compact_hits(s, cuts, *got)
+
+    t = _timings(torch, call, "scan_runs_fused_kernel" if fused
+                 else THREE_KERNELS, plain=plain)
+    if not fused:
+        t["device_ms"] = _device_ms(torch, call, THREE_KERNELS,
+                                    per_call=True)
+    before = {"ms_back_to_back": _back_to_back_ms(torch, three),
+              "device_ms": _device_ms(torch, three, THREE_KERNELS,
+                                      per_call=True)}
+    # the work these inputs need: each kept window's pair-table sums
+    # (ceil(k / 2) a table word; two columns a word when every window sum
+    # fits 16 bits) and one count a valid window and column; the inputs
+    # read once, the bits, histogram, count and kept indices written once
+    codes, n_ind = rows.expand()
+    probe = sr.apply_masks(
+        torch.full((rows.b, noff, 1), -2, dtype=torch.int32, device="cuda"),
+        n_ind, vb, torch.full((1,), -3, dtype=torch.int32, device="cuda"), k)
+    summed, valid = int((probe == -2).sum()), int((probe != -1).sum())
+    del codes, n_ind, probe
+    pack = bool((lut >= 0).all()) and int(lut.max()) * k <= 0xFFFF
+    words = (m + 1) // 2 if pack else m
+    adds = summed * ((k + 1) // 2) * words + valid * m
+    nbytes = (_block_bytes_read(torch, batch, lut) + 2 * m * 4
+              + bits.numel() + comp_size * m * 4 + 4 + kept * 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = adds / INT32_ADDS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    route = (f"fused, {plan['groups']} column group(s)" if fused
+             else "three launches")
+    log(f"scan_block vs plain [{label}] (B, R, k, M) = ({rows.b}, {rows.r}, "
+        f"{k}, {m}), {comp_size} bins, {route}: {n} hits ({tier} tier), "
+        f"histogram, count, indices and bits identical, max_abs_err 0; "
+        f"{_fmt(t, bound, 'no one call')} "
+        f"({'bytes' if bytes_ms >= ops_ms else 'operations'}); three "
+        f"launches: back to back {before['ms_back_to_back']:.4f} ms, device "
+        f"{before['device_ms'] or float('nan'):.4f} ms")
+    return dict(t, label=label, max_abs_err=err, bound_ms=bound,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, adds=adds, hits=n, tier=tier,
+                route=plan["route"], groups=plan["groups"],
+                before_ms_back_to_back=before["ms_back_to_back"],
+                before_device_ms=before["device_ms"])
+
+
+def phase_scan_block_vs_plain(torch, wd):
+    """Phase 15: the run engine's slice-block entry, ``scan_block`` -- one
+    launch of ``csrc/scan_runs.cu``'s fused kernel that scores, counts and
+    compacts -- against its plain version on the card, bit for bit: all
+    five kinds at the main path's block (8192 rows of R = 2048 of phase
+    5's chromosome with seeded N runs, real CTCF forward and reverse
+    complement, compressed bins, p < 1e-4); the hit tiers on gathered
+    rows (the flush read's, past the index capacity at p < 1e-3, dense at
+    ``-t 1``); M = 16 and 40 in column groups; both sides of the bin count
+    at which a column stops fitting one block; k = 70 on the route the plan
+    gives it; and phase 14's other shapes (a clean block of each kind, M =
+    40 at k = 30 on R = 256, short rows, LUT entries at 1020, a LUT of
+    400 columns).  The kinds' edge rows ride every block: an all-invalid
+    row, empty, full and repeated patch slots, negative splice shifts."""
+    import numpy as np
+
+    from grafimo_tpu_torch import kernels
+    from grafimo_tpu_torch.models.pvalue import PvalueLookup
+    from grafimo_tpu_torch.ops import score_runs as sr
+
+    rng = np.random.default_rng(SEED + 9)
+    genome = _scan_runs_genome(torch, wd, rng)
+    ctcf, lut, mins = _ctcf_lut(torch)
+    lookup = PvalueLookup(ctcf.pval_table)
+    k = ctcf.width
+
+    def compressed(lut):
+        bases = lut.min(dim=1).values.sum(dim=0).to(torch.int32)
+        return bases, int((lut.max(dim=1).values.sum(dim=0) - bases).max()) + 2
+
+    def ctcf_cuts(p):
+        return torch.full((2,), lookup.score_cutoff(p), dtype=torch.int32,
+                          device="cuda")
+
+    bases, comp = compressed(lut)
+    cases = []
+    for kind in KINDS:
+        batch = _kind_batch(torch, kind, genome, 8192, 2048, k, rng)
+        cases.append(_fused_block_case(
+            torch, f"{kind}, main path block, real CTCF, p < 1e-4", batch,
+            lut, mins, ctcf_cuts(1e-4), comp, bases))
+        del batch
+    for label, b, p in [("flush read tier, p < 1e-4", 2048, 1e-4),
+                        ("past the index capacity, p < 1e-3", 8192, 1e-3),
+                        ("dense, -t 1", 2048, 1.0)]:
+        batch = _kind_batch(torch, "gathered", genome, b, 2048, k, rng)
+        cases.append(_fused_block_case(
+            torch, f"gathered, real CTCF, {label}", batch, lut, mins,
+            ctcf_cuts(p), comp, bases))
+        del batch
+    # a CTCF column's bins that just fit one block, and one bin more (the
+    # three launches)
+    fit, over = comp, 1 << 20
+    while over - fit > 1:
+        mid = (fit + over) // 2
+        one_block = sr.fused_plan(1, k, 2048, mid, kernels.smem_block(0))
+        fit, over = ((mid, over) if one_block["route"] == "fused"
+                     else (fit, mid))
+    for size in (fit, fit + 1):
+        batch = _kind_batch(torch, "spliced", genome, 1024, 2048, k, rng)
+        cases.append(_fused_block_case(
+            torch, f"spliced, CTCF forward, {size} bins", batch,
+            lut[:, :, :1].contiguous(), mins[:1], ctcf_cuts(1e-4)[:1], size,
+            bases[:1]))
+        del batch
+    # phase 14's other shapes: the kinds' clean block (no vbits, no N
+    # plane), column groups at k = 19 and 30, k = 70, short rows, LUT
+    # entries at 1020 and a LUT of 400 columns
+    for kind in KINDS:
+        batch = _kind_batch(torch, kind, genome, 1024, 2048, k, rng, False)
+        cases.append(_fused_block_case(
+            torch, f"{kind}, clean block (no vbits, no N plane), CTCF",
+            batch, lut, mins, ctcf_cuts(1e-4), comp, bases))
+        del batch
+    for kind, k_, m, b, r in [
+            ("patched", 19, 16, 1024, 2048), ("patched", 19, 40, 1024, 2048),
+            ("gathered", 30, 40, 4096, 256), ("patched", 70, 2, 2048, 2048),
+            ("patched", 70, 16, 1024, 2048), ("packed", 8, 16, 16384, 64),
+            ("spliced", 30, 400, 256, 256)]:
+        lut_r, b_r, t_r = _random_motif_lut(torch, k_, m, SEED + 9 + k_ + m)
+        cases.append(_random_block_case(
+            torch, f"{kind}, random motifs k={k_} M={m}",
+            _kind_batch(torch, kind, genome, b, r, k_, rng, True,
+                        4 if r <= 256 else 16), lut_r, b_r, t_r))
+        del lut_r
+    lut_r = torch.randint(0, 1001, (k, 4, 5), device="cuda", dtype=torch.int32,
+                          generator=torch.Generator(device="cuda").manual_seed(
+                              SEED + 9))
+    lut_r[:, :, 0] = 1020
+    cases.append(_random_block_case(
+        torch, "spliced, LUT entries at 1020, M=5",
+        _kind_batch(torch, "spliced", genome, 4096, 256, k, rng), lut_r,
+        lut_r.min(dim=1).values.sum(dim=0), lut_r.max(dim=1).values.sum(dim=0)))
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _random_block_case(torch, label, batch, lut, lo, hi):
+    """Phase 15's case for a LUT with column minima sums ``lo`` and maxima
+    sums ``hi``: compressed bins, cutoffs 4/5 of the way up, N windows at
+    the base less one."""
+    bases = lo.to(torch.int32)
+    comp = int((hi - lo).max()) + 2
+    cuts = (lo + (hi - lo) * 4 // 5).to(torch.int32)
+    return _fused_block_case(torch, label, batch, lut,
+                             (lo - 1).to(torch.int32), cuts, comp, bases)
+
+
 def _kernel_line(name, source, replaces, launches, cases, headline, by_path):
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_back_to_back",
             "device_ms")
@@ -1857,22 +2202,24 @@ def main() -> int:
     hist_cases = phase_kernel_vs_plain(torch)
     phase_cuda_vs_cpu(torch)
     with tempfile.TemporaryDirectory(prefix="grafimo_smoke_") as wd:
-        (launches, compactions, scans, gdir, synth,
-         batches) = phase_main_path(torch, wd)
+        launches, gdir, synth, batches = phase_main_path(torch, wd)
         peaked = phase_peaked_hist(torch, wd)
-        # phase 14 needs phase 5's chromosome, and its device times a
-        # profiler that no --profile run in this process has used
+        # phases 14 and 15 need phase 5's chromosome, and their device
+        # times a profiler that no --profile run in this process has used
         scan_runs_cases = phase_scan_runs_vs_plain(torch, wd)
+        block_cases = phase_scan_block_vs_plain(torch, wd)
         scan_cases = phase_scan_packed_vs_plain(torch)
         fused_cases = phase_fused_vs_plain(torch)
         hist_cases += phase_hist_variants(torch)
-        scan_launches = phase_window_engine(torch, wd, gdir, synth)
+        scan_launches, peak_launches = phase_window_engine(torch, wd, gdir,
+                                                           synth)
         shard_launches = phase_multi_device(torch, wd, gdir, batches)
         del batches
         grid_launches = phase_grid(torch)
         rank_launches = phase_two_processes(torch, wd, gdir)
         profile_launches = phase_profile(torch, wd, gdir)
         compact_cases, comp_hist_cases = phase_device_half(torch, wd, gdir)
+        three = phase_three_launch_route(torch, wd, gdir, synth)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     if cases_json:
         with open(cases_json, "w") as f:
@@ -1880,32 +2227,43 @@ def main() -> int:
                        "scan_packed": scan_cases,
                        "scan_packed_fused": fused_cases,
                        "compact_hits": compact_cases,
-                       "scan_runs": scan_runs_cases}, f, indent=1)
+                       "scan_runs": scan_runs_cases,
+                       "scan_runs_fused": block_cases}, f, indent=1)
     # the compaction's headline: the sparse case at the (2048, 2030, 2)
     # plane, the shape of the histogram's headline
     compact_head = next(c for c in compact_cases if c["hits"]
                         and "p < 1e-4" in c["label"])
     # the scoring core's headline: the main path's block of gathered rows
     # (8192 x 2048, the shape a slice takes; the chromosome holds fewer
-    # strided rows)
+    # strided rows), unfused and fused
     scan_head = next(c for c in scan_runs_cases
                      if c["label"] == "gathered, main path block, real CTCF")
+    block_head = next(c for c in block_cases if c["label"].startswith(
+        "gathered, main path block"))
     # each kernel at the shape its engine's main path gives it: the run
-    # engine's plane of real CTCF scores, the window engine's region batch;
-    # launches on each path, counted from 0 just before it
+    # engine's slice block and plane of real CTCF scores, the window
+    # engine's region batch; launches on each kernel's own path (the run
+    # engine's fused route, the window engine, the run engine's
+    # three-launch route), counted from 0 just before it
+    fused_route = {
+        "run engine 10 Mbp, 1 device": launches,
+        "run engine 10 Mbp, 2 shards of cuda:0": shard_launches,
+        "run engine, peak set": peak_launches,
+        "(4, 2) grid functions": grid_launches["scan_runs_fused"],
+        "2 processes, both ranks, peak set + one region": rank_launches,
+        "--profile, peak set": profile_launches,
+    }
+    three_route = {f"{name}, fused route": 0 for name in fused_route}
     print(json.dumps({"kernels": [
         _kernel_line("exact_hist", "grafimo_tpu_torch/csrc/hist.cu",
-                     "grafimo_tpu/ops/pallas_hist.py:90", launches,
+                     "grafimo_tpu/ops/pallas_hist.py:90",
+                     three["exact_hist"],
                      [peaked] + hist_cases + comp_hist_cases,
-                     comp_hist_cases[0], {
-                         "run engine 10 Mbp, 1 device": launches,
-                         "run engine 10 Mbp, 2 shards of cuda:0":
-                             shard_launches,
+                     comp_hist_cases[0], dict(three_route, **{
+                         "run engine, 70-wide motif (three launches)":
+                             three["exact_hist"],
                          "(4, 2) grid functions": grid_launches["exact_hist"],
-                         "2 processes, both ranks, peak set + one region":
-                             rank_launches,
-                         "--profile, peak set": profile_launches,
-                     }),
+                     })),
         _kernel_line("scan_packed", "grafimo_tpu_torch/csrc/scan_packed.cu",
                      "grafimo_tpu/ops/pallas_scan.py:74", scan_launches,
                      scan_cases + fused_cases, fused_cases[0], {
@@ -1914,23 +2272,24 @@ def main() -> int:
                              grid_launches["scan_packed"],
                      }),
         _kernel_line("compact_hits", "grafimo_tpu_torch/csrc/compact.cu",
-                     "grafimo_tpu/ops/score_runs.py:684", compactions,
-                     compact_cases, compact_head, {
-                         "run engine 10 Mbp, 1 device": compactions,
+                     "grafimo_tpu/ops/score_runs.py:684",
+                     three["compact_hits"], compact_cases, compact_head,
+                     dict(three_route, **{
+                         "run engine, 70-wide motif (three launches)":
+                             three["compact_hits"],
                          "(4, 2) grid functions":
                              grid_launches["compact_hits"],
-                     }),
+                     })),
         _kernel_line("scan_runs", "grafimo_tpu_torch/csrc/scan_runs.cu",
-                     "grafimo_tpu/ops/score_runs.py:410", scans,
-                     scan_runs_cases, scan_head, {
-                         "run engine 10 Mbp, 1 device": scans,
-                         "run engine 10 Mbp, 2 shards of cuda:0":
-                             shard_launches,
+                     "grafimo_tpu/ops/score_runs.py:410", three["scan_runs"],
+                     scan_runs_cases, scan_head, dict(three_route, **{
+                         "run engine, 70-wide motif (three launches)":
+                             three["scan_runs"],
                          "(4, 2) grid functions": grid_launches["scan_runs"],
-                         "2 processes, both ranks, peak set + one region":
-                             rank_launches,
-                         "--profile, peak set": profile_launches,
-                     }),
+                     })),
+        _kernel_line("scan_runs_fused", "grafimo_tpu_torch/csrc/scan_runs.cu",
+                     "grafimo_tpu/ops/pallas_hist.py:90", launches,
+                     block_cases, block_head, fused_route),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -150,6 +150,16 @@ def load() -> ctypes.CDLL:
                 c.c_void_p, c.c_int, c.c_void_p,  # out, dev, stream
             ]
             lib.grafimo_scan_runs.restype = c.c_int
+            lib.grafimo_scan_runs_fused.argtypes = [
+                *lib.grafimo_scan_runs.argtypes[:-3],  # through b, r, k, m
+                c.c_void_p, c.c_void_p, c.c_int,  # cutoffs, bases, comp_size
+                c.c_void_p, c.c_void_p,  # hist, count
+                c.c_void_p, c.c_int, c.c_void_p, c.c_int,  # idx_a, idx_b
+                c.c_void_p, c.c_int, c.c_void_p,  # bits, dev, stream
+            ]
+            lib.grafimo_scan_runs_fused.restype = c.c_int
+            lib.grafimo_smem_block.argtypes = [c.c_int]
+            lib.grafimo_smem_block.restype = c.c_int
             lib.grafimo_cuda_error_string.argtypes = [c.c_int]
             lib.grafimo_cuda_error_string.restype = c.c_char_p
             _LIB = lib
@@ -162,6 +172,14 @@ def max_hist_size(dev: int) -> int:
     ``dev`` (one cluster of blocks' shared memory)."""
     with on_device(dev):
         return load().grafimo_max_hist_size(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def smem_block(dev: int) -> int:
+    """The dynamic shared memory a block may opt in to on device ``dev``,
+    in bytes."""
+    with on_device(dev):
+        return load().grafimo_smem_block(dev)
 
 
 def on_device(dev: int):

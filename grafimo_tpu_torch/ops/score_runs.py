@@ -1,25 +1,35 @@
-"""Run scanning: expand, score and histogram every stride-1 window of a
-run batch.
+"""Run scanning: expand, score, count and compact every stride-1 window of
+a run batch.
 
-Counterpart of ``grafimo_tpu/ops/score_runs.py``.  Each of the five batch
-kinds the run scan dispatches has a function here that takes the batch's
-tensors on one device and returns
+Counterpart of ``grafimo_tpu/ops/score_runs.py``.  A slice block of one
+of the five batch kinds the run scan dispatches is described by
+:class:`BatchRows` (``packed_rows``, ``resident_rows``, ``strided_rows``,
+``patched_rows``, ``spliced_rows``), and :func:`scan_block` -- the run
+engine's one entry -- takes it with the block's cutoffs, histogram bases
+and size and the caller's index buffers, and returns
 
-* ``scores (B, Noff, M) int32`` -- the window scores after the N and
-  validity masks (windows covering an N score ``min_score``, invalid
-  offsets -1), from which :mod:`grafimo_tpu_torch.ops.compact` takes the
-  hits (the reference packs them into hit bits and compacts them in the
-  same jitted kernel, ``_finish_scores``, ``_topk_package_tiered``);
-* ``hist (hist_size, M) int32`` -- their exact histogram
-  (:mod:`grafimo_tpu_torch.ops.hist`), over the compressed bins of
-  ``hist_bases`` when given.
+* ``hist (comp_size, M) int32`` -- the exact histogram of the block's
+  masked window scores (windows covering an N score ``min_score``, invalid
+  offsets -1), over the compressed bins of ``bases`` when given
+  (:mod:`grafimo_tpu_torch.ops.hist`'s contract);
+* ``bits (B, ceil(Noff/8), M) uint8`` -- the packed hit bits, with the hit
+  count and indices written into the caller's buffers
+  (:mod:`grafimo_tpu_torch.ops.compact`'s contract); the reference packs
+  and compacts them in the same jitted kernel (``_finish_scores``,
+  ``_topk_package_tiered``).
 
-The masked scores come from one launch of ``csrc/scan_runs.cu`` for CUDA
-tensors, which raises if it cannot, and from the plain version
-(``scan_runs_*_reference``) only for CPU tensors; ``COUNTS`` records which
-ran.  Both routes check their tensors alike.  A slice block on a card is
-three launches: ``scan_runs.cu``, ``hist.cu`` (which remaps on load) and
-``compact.cu``.
+On a card that is one launch of ``csrc/scan_runs.cu``'s fused kernel,
+which never writes the score plane, or, for the shapes
+:func:`fused_plan` sends elsewhere, three: the scores
+(``csrc/scan_runs.cu``), ``hist.cu`` and ``compact.cu``.  A failed build
+or launch raises.  Its plain version, :func:`scan_block_reference`,
+composes the three plain versions and runs only for CPU tensors.
+``COUNTS`` records which ran.
+
+The five ``scan_runs_*`` functions keep the scores: each returns
+``(hist, scores (B, Noff, M) int32)`` from one launch of the unfused
+kernel for CUDA tensors (their plain versions ``scan_runs_*_reference``
+for CPU tensors) and :func:`~grafimo_tpu_torch.ops.hist.exact_hist`.
 
 Scoring is integer throughout: ``acc += lut[j][codes[:, j:j+Noff]]`` for
 ``j < k`` in int32, the sum the reference's select formulation
@@ -36,12 +46,19 @@ The module also carries copies of the jax-free host helpers of
 ``tests/test_torch_score_runs.py`` pins it to the original.
 """
 
+from dataclasses import dataclass
+from typing import Callable
+
 import numpy as np
 import torch
 
 from grafimo_tpu_torch import kernels
 from grafimo_tpu_torch.utils.constants import RANGE
-from grafimo_tpu_torch.ops.hist import exact_hist
+from grafimo_tpu_torch.ops.compact import (
+    compact_hits,
+    compact_hits_reference,
+)
+from grafimo_tpu_torch.ops.hist import exact_hist, exact_hist_reference
 
 # --------------------------------------------------------------------------
 # host helpers, copied from the reference
@@ -261,14 +278,15 @@ def _clear_at_patches(plane: torch.Tensor, patches: torch.Tensor):
 # the plain version of the scoring core (reference ``_window_scores :410``
 # and the masks of ``_finish_scores :483-502``)
 
-# launches of csrc/scan_runs.cu / calls of the plain version since the
+# launches of csrc/scan_runs.cu's unfused kernel ("kernel") and of its
+# fused one ("fused"), and calls of the scores' plain version, since the
 # last reset_counts()
-COUNTS = {"kernel": 0, "plain": 0}
+COUNTS = {"kernel": 0, "fused": 0, "plain": 0}
 
 
 def reset_counts() -> None:
-    COUNTS["kernel"] = 0
-    COUNTS["plain"] = 0
+    for key in COUNTS:
+        COUNTS[key] = 0
 
 
 def _window_scores(codes: torch.Tensor, lut: torch.Tensor, k: int):
@@ -306,13 +324,13 @@ def apply_masks(scores, n_ind, vbits, min_scores, k: int):
 # Each kind's rows as ``(codes (B, R) int64, N indicator (B, R) or None)``
 
 
-def rows_packed(packed, nbits):
+def _codes_packed(packed, nbits):
     r = packed.shape[1] * 4
     return _unpack2(packed), (_unpack1(nbits, r) if nbits is not None
                               else None)
 
 
-def rows_resident(genome, ngenome, gstart, r: int):
+def _codes_resident(genome, ngenome, gstart, r: int):
     gstart = gstart.to(torch.int64)
     return _expand_resident(genome, gstart, r), (
         _expand_resident_bits(ngenome, gstart, r)
@@ -320,25 +338,25 @@ def rows_resident(genome, ngenome, gstart, r: int):
     )
 
 
-def rows_strided(genome, ngenome, lo: int, b: int, stride: int, r: int):
+def _codes_strided(genome, ngenome, lo: int, b: int, stride: int, r: int):
     return _expand_strided(genome, lo, b, stride, r, 2), (
         _expand_strided(ngenome, lo, b, stride, r, 1)
         if ngenome is not None else None
     )
 
 
-def rows_patched(genome, ngenome, gstart, patches, r: int):
+def _codes_patched(genome, ngenome, gstart, patches, r: int):
     """The N plane keeps its bits at patched offsets (reference
     ``:912-917``)."""
-    codes, n_ind = rows_resident(genome, ngenome, gstart, r)
+    codes, n_ind = _codes_resident(genome, ngenome, gstart, r)
     return _apply_patches(codes, patches), n_ind
 
 
-def rows_spliced(genome, ngenome, gstart, splice, patches, r: int):
+def _codes_spliced(genome, ngenome, gstart, splice, patches, r: int):
     """The N plane is cleared at patched offsets (reference
     ``:987-989``)."""
     gstart = gstart.to(torch.int64)
-    codes, n_ind = rows_resident(genome, ngenome, gstart, r)
+    codes, n_ind = _codes_resident(genome, ngenome, gstart, r)
     iota = torch.arange(r, device=codes.device)[None, :]
     s64 = splice.to(torch.int64)
     for s in range(splice.shape[1] // 2):
@@ -366,14 +384,14 @@ def _masked_scores(rows, vbits, lut, min_scores, k: int):
 
 def scan_runs_device_reference(packed, nbits, vbits, lut, min_scores, k: int):
     """Plain version of :func:`scan_runs_device`'s masked scores."""
-    return _masked_scores(rows_packed(packed, nbits), vbits, lut, min_scores,
+    return _masked_scores(_codes_packed(packed, nbits), vbits, lut, min_scores,
                           k)
 
 
 def scan_runs_resident_reference(genome, ngenome, gstart, vbits, lut,
                                  min_scores, r: int, k: int):
     """Plain version of :func:`scan_runs_resident`'s masked scores."""
-    return _masked_scores(rows_resident(genome, ngenome, gstart, r), vbits,
+    return _masked_scores(_codes_resident(genome, ngenome, gstart, r), vbits,
                           lut, min_scores, k)
 
 
@@ -382,7 +400,7 @@ def scan_runs_resident_strided_reference(genome, ngenome, lo: int, vbits,
                                          stride: int, r: int, k: int):
     """Plain version of :func:`scan_runs_resident_strided`'s masked
     scores."""
-    return _masked_scores(rows_strided(genome, ngenome, lo, b, stride, r),
+    return _masked_scores(_codes_strided(genome, ngenome, lo, b, stride, r),
                           vbits, lut, min_scores, k)
 
 
@@ -392,7 +410,7 @@ def scan_runs_resident_patched_reference(genome, ngenome, gstart, patches,
     """Plain version of :func:`scan_runs_resident_patched`'s masked
     scores."""
     return _masked_scores(
-        rows_patched(genome, ngenome, gstart, patches, r), vbits, lut,
+        _codes_patched(genome, ngenome, gstart, patches, r), vbits, lut,
         min_scores, k)
 
 
@@ -402,7 +420,7 @@ def scan_runs_resident_spliced_reference(genome, ngenome, gstart, splice,
     """Plain version of :func:`scan_runs_resident_spliced`'s masked
     scores."""
     return _masked_scores(
-        rows_spliced(genome, ngenome, gstart, splice, patches, r), vbits,
+        _codes_spliced(genome, ngenome, gstart, splice, patches, r), vbits,
         lut, min_scores, k)
 
 
@@ -478,136 +496,343 @@ def _check(source: int, b: int, r: int, k: int, lut, min_scores, vbits, *,
                              f"2 * stride, got stride {stride}, R={r}")
 
 
-def _launch(source: int, b: int, r: int, k: int, lut, min_scores, vbits, *,
-            packed=None, nbits=None, genome=None, ngenome=None, gstart=None,
-            lo: int = 0, stride: int = 0, patches=None, splice=None,
-            clear_n: bool = False) -> torch.Tensor:
-    """One launch of ``csrc/scan_runs.cu``: the masked scores.  A strided
-    span past a plane raises, as the plain version's span decode does."""
-    if source == _STRIDED:
-        for words, bits in ((genome, 2), (ngenome, 1)):
+# --------------------------------------------------------------------------
+# a slice block's rows, one constructor a batch kind.  Arguments follow
+# the reference's ``*_topk`` kernels; ``nbits``/``ngenome`` may be None
+# (clean batch: no N bases).
+
+
+@dataclass
+class BatchRows:
+    """A slice block's rows as a batch kind gives them: the kernel's row
+    ``source``, ``b`` rows of ``r`` positions, the row tensors by name
+    (``packed``, ``nbits``, ``genome``, ``ngenome``, ``gstart``,
+    ``patches``, ``splice``), the strided rows' ``lo`` and ``stride``, the
+    spliced kind's N clear, and ``expand``, the plain version's rows
+    ``(codes (B, R) int64, N indicator (B, R) or None)``."""
+
+    source: int
+    b: int
+    r: int
+    tensors: dict
+    expand: Callable
+    lo: int = 0
+    stride: int = 0
+    clear_n: bool = False
+
+
+def packed_rows(packed, nbits) -> BatchRows:
+    """Packed rows: ``packed (B, R/4) uint8`` codes, ``nbits (B, R/8)`` N
+    plane (reference ``scan_runs_device_topk :554``)."""
+    if packed.dim() != 2:
+        raise ValueError(f"scan_runs: packed must be (B, R/4), got "
+                         f"{tuple(packed.shape)}")
+    return BatchRows(_PACKED, packed.shape[0], packed.shape[1] * 4,
+                     dict(packed=packed, nbits=nbits),
+                     lambda: _codes_packed(packed, nbits))
+
+
+def resident_rows(genome, ngenome, gstart, r: int) -> BatchRows:
+    """Gathered backbone rows at genome offsets ``gstart (B,) int32``
+    (reference ``scan_runs_resident_topk :789``)."""
+    return BatchRows(_GATHERED, gstart.shape[0], r,
+                     dict(genome=genome, ngenome=ngenome, gstart=gstart),
+                     lambda: _codes_resident(genome, ngenome, gstart, r))
+
+
+def strided_rows(genome, ngenome, lo: int, b: int, stride: int,
+                 r: int) -> BatchRows:
+    """Uniformly strided backbone rows, row i at ``lo + i*stride``
+    (reference ``scan_runs_resident_strided_topk :819``); requires
+    ``stride <= r <= 2*stride``, and a span past the planes raises."""
+    return BatchRows(_STRIDED, b, r, dict(genome=genome, ngenome=ngenome),
+                     lambda: _codes_strided(genome, ngenome, lo, b, stride, r),
+                     lo=lo, stride=stride)
+
+
+def patched_rows(genome, ngenome, gstart, patches, r: int) -> BatchRows:
+    """Substitution-only cluster rows: genome at ``gstart`` plus per-row
+    patches ``(B, P) int16`` (reference
+    ``scan_runs_resident_patched_topk :901``)."""
+    return BatchRows(_GATHERED, gstart.shape[0], r,
+                     dict(genome=genome, ngenome=ngenome, gstart=gstart,
+                          patches=patches),
+                     lambda: _codes_patched(genome, ngenome, gstart, patches,
+                                            r))
+
+
+def spliced_rows(genome, ngenome, gstart, splice, patches,
+                 r: int) -> BatchRows:
+    """Indel cluster rows: the genome spliced piecewise at ``(bound,
+    shift)`` pairs of ``splice (B, 2*S) int16`` (bound ``0x7FFF`` =
+    unused), then patched (reference
+    ``scan_runs_resident_spliced_topk :946``)."""
+    return BatchRows(_GATHERED, gstart.shape[0], r,
+                     dict(genome=genome, ngenome=ngenome, gstart=gstart,
+                          patches=patches, splice=splice),
+                     lambda: _codes_spliced(genome, ngenome, gstart, splice,
+                                          patches, r),
+                     clear_n=True)
+
+
+def _check_rows(rows: BatchRows, k: int, lut, min_scores, vbits) -> None:
+    _check(rows.source, rows.b, rows.r, k, lut, min_scores, vbits,
+           lo=rows.lo, stride=rows.stride, **rows.tensors)
+
+
+def _row_args(rows: BatchRows, k: int, lut, min_scores, vbits) -> list:
+    """The row arguments both kernel entries take, through ``m``.  A
+    strided span past a plane raises, as the plain version's span decode
+    does; so do more windows than an int32 flat index holds."""
+    t = rows.tensors
+    if rows.source == _STRIDED:
+        for words, bits in ((t.get("genome"), 2), (t.get("ngenome"), 1)):
             if words is not None:
-                _check_span(words, lo, b * stride + r, bits)
-    dev = lut.device
-    noff = r - k + 1
+                _check_span(words, rows.lo, rows.b * rows.stride + rows.r,
+                            bits)
     m = lut.shape[2]
-    if b * noff * m >= 1 << 31:
-        raise ValueError(f"scan_runs: {b * noff * m} windows do not fit an "
-                         f"int32 flat index")
-    out = torch.empty((b, noff, m), dtype=torch.int32, device=dev)
+    if rows.b * (rows.r - k + 1) * m >= 1 << 31:
+        raise ValueError(f"scan_runs: {rows.b * (rows.r - k + 1) * m} "
+                         f"windows do not fit an int32 flat index")
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    def ptr(x):
+        return None if x is None else x.data_ptr()
 
-    def cols(t):
-        return 0 if t is None else t.shape[-1]
+    def cols(x):
+        return 0 if x is None else x.shape[-1]
 
+    packed, nbits, genome, ngenome, patches, splice = (
+        t.get(name) for name in ("packed", "nbits", "genome", "ngenome",
+                                 "patches", "splice"))
+    return [rows.source, ptr(packed), cols(packed), ptr(nbits), cols(nbits),
+            ptr(genome), cols(genome), ptr(ngenome), cols(ngenome),
+            ptr(t.get("gstart")), rows.lo, rows.stride, ptr(patches),
+            cols(patches), ptr(splice), cols(splice) // 2, int(rows.clear_n),
+            ptr(vbits), cols(vbits), lut.data_ptr(), min_scores.data_ptr(),
+            rows.b, rows.r, k, m]
+
+
+def _launch(rows: BatchRows, k: int, lut, min_scores, vbits) -> torch.Tensor:
+    """One launch of ``csrc/scan_runs.cu``'s unfused kernel: the masked
+    scores."""
+    dev = lut.device
+    args = _row_args(rows, k, lut, min_scores, vbits)
+    out = torch.empty((rows.b, rows.r - k + 1, lut.shape[2]),
+                      dtype=torch.int32, device=dev)
     lib = kernels.load()
     ix = dev.index
     with kernels.on_device(ix):
         code = lib.grafimo_scan_runs(
-            source, ptr(packed), cols(packed), ptr(nbits), cols(nbits),
-            ptr(genome), cols(genome), ptr(ngenome), cols(ngenome),
-            ptr(gstart), lo, stride, ptr(patches), cols(patches),
-            ptr(splice), cols(splice) // 2, int(clear_n), ptr(vbits),
-            cols(vbits), lut.data_ptr(), min_scores.data_ptr(), b, r, k, m,
-            out.data_ptr(), ix, torch.cuda.current_stream(ix).cuda_stream,
-        )
+            *args, out.data_ptr(), ix,
+            torch.cuda.current_stream(ix).cuda_stream)
     kernels.check(lib, code, "scan_runs launch")
-    if b:
+    if rows.b:
         COUNTS["kernel"] += 1
     return out
 
 
-def _scores(plain, source: int, b: int, r: int, k: int, lut, min_scores,
-            vbits, clear_n: bool = False, **rows) -> torch.Tensor:
-    """The masked scores: ``plain()`` for CPU tensors, one launch of the
-    kernel for CUDA tensors."""
-    _check(source, b, r, k, lut, min_scores, vbits, **rows)
+def _scores(rows: BatchRows, k: int, lut, min_scores,
+            vbits) -> torch.Tensor:
+    """The masked scores: the plain version for CPU tensors, one launch of
+    the unfused kernel for CUDA tensors."""
+    _check_rows(rows, k, lut, min_scores, vbits)
     if lut.device.type == "cpu":
-        return plain()
+        return _masked_scores(rows.expand(), vbits, lut, min_scores, k)
     if lut.device.type != "cuda":
         raise ValueError(f"scan_runs: unsupported device {lut.device}")
-    return _launch(source, b, r, k, lut, min_scores, vbits, clear_n=clear_n,
-                   **rows)
+    return _launch(rows, k, lut, min_scores, vbits)
 
 
 # --------------------------------------------------------------------------
-# the five batch kinds.  Arguments follow the reference's ``*_topk``
-# kernels without ``hist_acc``, ``cutoffs`` and ``topk``;
-# ``nbits``/``ngenome`` and ``vbits`` may be None (clean batch: no N bases
-# / every offset valid).  Each returns ``(hist, scores)``: the masked
-# scores and their histogram, remapped by ``hist_bases`` when given
-# (:func:`~grafimo_tpu_torch.ops.hist.exact_hist`).
+# the five batch kinds with their scores.  Arguments follow the
+# reference's ``*_topk`` kernels without ``hist_acc``, ``cutoffs`` and
+# ``topk``; ``vbits`` may be None (every offset valid).  Each returns
+# ``(hist, scores)``: the masked scores and their histogram, remapped by
+# ``hist_bases`` when given (:func:`~grafimo_tpu_torch.ops.hist.exact_hist`).
+
+
+def _with_hist(rows, vbits, lut, min_scores, k, hist_size, hist_bases):
+    scores = _scores(rows, k, lut, min_scores, vbits)
+    return exact_hist(scores, hist_size, hist_bases), scores
 
 
 def scan_runs_device(packed, nbits, vbits, lut, min_scores, k: int,
                      hist_size: int, hist_bases=None):
-    """Packed rows: ``packed (B, R/4) uint8`` codes, ``nbits (B, R/8)``
-    N plane (reference ``scan_runs_device_topk :554``)."""
-    if packed.dim() != 2:
-        raise ValueError(f"scan_runs: packed must be (B, R/4), got "
-                         f"{tuple(packed.shape)}")
-    b, r = packed.shape[0], packed.shape[1] * 4
-    scores = _scores(
-        lambda: scan_runs_device_reference(packed, nbits, vbits, lut,
-                                           min_scores, k),
-        _PACKED, b, r, k, lut, min_scores, vbits, packed=packed, nbits=nbits)
-    return exact_hist(scores, hist_size, hist_bases), scores
+    """Packed rows (:func:`packed_rows`)."""
+    return _with_hist(packed_rows(packed, nbits), vbits, lut, min_scores, k,
+                      hist_size, hist_bases)
 
 
 def scan_runs_resident(genome, ngenome, gstart, vbits, lut, min_scores,
                        r: int, k: int, hist_size: int, hist_bases=None):
-    """Gathered backbone rows at genome offsets ``gstart (B,) int32``
-    (reference ``scan_runs_resident_topk :789``)."""
-    scores = _scores(
-        lambda: scan_runs_resident_reference(genome, ngenome, gstart, vbits,
-                                             lut, min_scores, r, k),
-        _GATHERED, gstart.shape[0], r, k, lut, min_scores, vbits,
-        genome=genome, ngenome=ngenome, gstart=gstart)
-    return exact_hist(scores, hist_size, hist_bases), scores
+    """Gathered backbone rows (:func:`resident_rows`)."""
+    return _with_hist(resident_rows(genome, ngenome, gstart, r), vbits, lut,
+                      min_scores, k, hist_size, hist_bases)
 
 
 def scan_runs_resident_strided(genome, ngenome, lo: int, vbits, lut,
                                min_scores, b: int, stride: int, r: int,
                                k: int, hist_size: int, hist_bases=None):
-    """Uniformly strided backbone rows, row i at ``lo + i*stride``
-    (reference ``scan_runs_resident_strided_topk :819``); requires
-    ``stride <= r <= 2*stride`` and raises on a span past the planes."""
-    scores = _scores(
-        lambda: scan_runs_resident_strided_reference(
-            genome, ngenome, lo, vbits, lut, min_scores, b, stride, r, k),
-        _STRIDED, b, r, k, lut, min_scores, vbits, genome=genome,
-        ngenome=ngenome, lo=lo, stride=stride)
-    return exact_hist(scores, hist_size, hist_bases), scores
+    """Uniformly strided backbone rows (:func:`strided_rows`)."""
+    return _with_hist(strided_rows(genome, ngenome, lo, b, stride, r), vbits,
+                      lut, min_scores, k, hist_size, hist_bases)
 
 
 def scan_runs_resident_patched(genome, ngenome, gstart, patches, vbits, lut,
                                min_scores, r: int, k: int, hist_size: int,
                                hist_bases=None):
-    """Substitution-only cluster rows: genome at ``gstart`` plus per-row
-    patches ``(B, P) int16`` (reference
-    ``scan_runs_resident_patched_topk :901``)."""
-    scores = _scores(
-        lambda: scan_runs_resident_patched_reference(
-            genome, ngenome, gstart, patches, vbits, lut, min_scores, r, k),
-        _GATHERED, gstart.shape[0], r, k, lut, min_scores, vbits,
-        genome=genome, ngenome=ngenome, gstart=gstart, patches=patches)
-    return exact_hist(scores, hist_size, hist_bases), scores
+    """Substitution-only cluster rows (:func:`patched_rows`)."""
+    return _with_hist(patched_rows(genome, ngenome, gstart, patches, r),
+                      vbits, lut, min_scores, k, hist_size, hist_bases)
 
 
 def scan_runs_resident_spliced(genome, ngenome, gstart, splice, patches,
                                vbits, lut, min_scores, r: int, k: int,
                                hist_size: int, hist_bases=None):
-    """Indel cluster rows: the genome spliced piecewise at ``(bound,
-    shift)`` pairs of ``splice (B, 2*S) int16`` (bound ``0x7FFF`` =
-    unused), then patched (reference
-    ``scan_runs_resident_spliced_topk :946``)."""
-    scores = _scores(
-        lambda: scan_runs_resident_spliced_reference(
-            genome, ngenome, gstart, splice, patches, vbits, lut, min_scores,
-            r, k),
-        _GATHERED, gstart.shape[0], r, k, lut, min_scores, vbits,
-        genome=genome, ngenome=ngenome, gstart=gstart, patches=patches,
-        splice=splice, clear_n=True)
-    return exact_hist(scores, hist_size, hist_bases), scores
+    """Indel cluster rows (:func:`spliced_rows`)."""
+    return _with_hist(
+        spliced_rows(genome, ngenome, gstart, splice, patches, r), vbits,
+        lut, min_scores, k, hist_size, hist_bases)
+
+
+# --------------------------------------------------------------------------
+# the slice block's entry: scores, histogram and hits in one pass
+
+# bytes of shared memory a block may opt in to on an H100 (227 KB)
+H100_SMEM_BLOCK = 232448
+# scan_runs.cu's fused layout: a block of up to 1024 threads in sub-blocks
+# of 256, each expanding row groups with enough rows for 4 tasks of 4
+# 32-offset chunks a warp (kTasksPerWarp, kTaskChunks), at most 64
+_SUBS = 1024 // 256
+_TASK_OFFSETS = 4 * 32
+_GROUP_TASKS = 4 * 256 // 32
+_MAX_ROWS_PER_GROUP = 64
+
+
+def fused_plan(m: int, k: int, r: int, comp_size: int,
+               smem_block: int = H100_SMEM_BLOCK) -> dict:
+    """The route of a slice block of ``m`` columns, ``k``-wide windows on
+    rows of ``r`` positions and ``comp_size`` bins a column, on a card
+    whose blocks take ``smem_block`` bytes of shared memory: ``route``
+    "fused" (one launch of the fused kernel, its columns in ``groups``
+    column groups) or "three" (scores, ``hist.cu``, ``compact.cu``;
+    ``groups`` 0), taken when one column's bins do not fit a block beside
+    its pair table and the rows: ``hist.cu`` splits those bins over a
+    cluster of blocks, where a fused kernel counting into other blocks'
+    shared memory ran three times slower than the three launches on an
+    H100 (``PERF.md``).  Mirrors ``plan_fused`` of ``csrc/scan_runs.cu``
+    and ``plan_bins`` of ``csrc/bins.cuh``.  Pure: the shape alone
+    decides."""
+    noff = r - k + 1
+    rpg = min(max(_GROUP_TASKS // -(-noff // _TASK_OFFSETS), 1),
+              _MAX_ROWS_PER_GROUP)
+    # a row's codes, N bits, validity bits, start and splice pairs
+    row_ints = (-(-r // 16) + 3) + (-(-r // 32) + 2) + -(-noff // 32) + 6
+    cap = (smem_block - 4 * (_SUBS * rpg * row_ints + 3)) // 4
+    # a column's pair table: 16 ints a position pair, the pairs rounded
+    # up to a multiple of 4; and its cutoff, minimum and base
+    per_col = ((k + 1) // 2 + 3) // 4 * 4 * 16 + 3
+    fit = cap // (comp_size + per_col)
+    if fit < 1:
+        return {"route": "three", "groups": 0}
+    groups = -(-m // min(m, fit))
+    return {"route": "fused", "groups": -(-m // -(-m // groups))}
+
+
+def _check_block(dev, m: int, cutoffs, comp_size: int, bases, count, idx,
+                 more) -> None:
+    """Device, dtype, contiguity and shape of the block's counting and
+    compaction tensors (``bases`` and ``more`` may be None)."""
+    if comp_size < 1:
+        raise ValueError(f"scan_block: comp_size must be >= 1, got "
+                         f"{comp_size}")
+    for name, t in (("cutoffs", cutoffs), ("bases", bases), ("count", count),
+                    ("idx", idx), ("more", more)):
+        if t is None and name in ("bases", "more"):
+            continue
+        if t.device != dev:
+            raise ValueError(f"scan_block: {name} on {t.device}, lut on "
+                             f"{dev}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"scan_block: {name} must be int32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"scan_block: {name} must be contiguous")
+        if name in ("cutoffs", "bases"):
+            ok = tuple(t.shape) == (m,)
+        elif name == "count":
+            ok = t.numel() == 1
+        else:
+            ok = t.dim() == 1
+        if not ok:
+            raise ValueError(f"scan_block: {name} has shape "
+                             f"{tuple(t.shape)}")
+
+
+def scan_block_reference(rows: BatchRows, vbits, lut, min_scores, k: int,
+                         cutoffs, comp_size: int, bases, count, idx,
+                         more=None):
+    """Plain version of :func:`scan_block`: the kind's plain scores, then
+    :func:`~grafimo_tpu_torch.ops.hist.exact_hist_reference` and
+    :func:`~grafimo_tpu_torch.ops.compact.compact_hits_reference`, on the
+    tensors' own device."""
+    scores = _masked_scores(rows.expand(), vbits, lut, min_scores, k)
+    return (exact_hist_reference(scores, comp_size, bases),
+            compact_hits_reference(scores, cutoffs, count, idx, more))
+
+
+def _launch_fused(rows: BatchRows, k: int, lut, min_scores, vbits, cutoffs,
+                  comp_size: int, bases, count, idx, more):
+    """One launch of ``csrc/scan_runs.cu``'s fused kernel."""
+    dev = lut.device
+    args = _row_args(rows, k, lut, min_scores, vbits)
+    m = lut.shape[2]
+    hist = torch.empty((comp_size, m), dtype=torch.int32, device=dev)
+    bits = torch.empty((rows.b, (rows.r - k + 8) // 8, m), dtype=torch.uint8,
+                       device=dev)
+    lib = kernels.load()
+    ix = dev.index
+    with kernels.on_device(ix):
+        code = lib.grafimo_scan_runs_fused(
+            *args, cutoffs.data_ptr(),
+            None if bases is None else bases.data_ptr(), comp_size,
+            hist.data_ptr(), count.data_ptr(), idx.data_ptr(), idx.numel(),
+            None if more is None else more.data_ptr(),
+            0 if more is None else more.numel(), bits.data_ptr(), ix,
+            torch.cuda.current_stream(ix).cuda_stream)
+    kernels.check(lib, code, "scan_runs fused launch")
+    if rows.b:
+        COUNTS["fused"] += 1
+    return hist, bits
+
+
+def scan_block(rows: BatchRows, vbits, lut, min_scores, k: int, cutoffs,
+               comp_size: int, bases, count, idx, more=None):
+    """Score, count and compact a slice block: ``(hist, bits)``.
+
+    ``hist (comp_size, M) int32`` is the histogram of the block's masked
+    scores, each remapped by ``bases (M,) int32`` when given
+    (:func:`~grafimo_tpu_torch.ops.hist.exact_hist`); ``bits`` are its
+    packed hit bits, and ``count`` (one int32), ``idx`` and ``more`` (1-D
+    int32, or None) receive the hit count and flat indices, in any order
+    on a card (:func:`~grafimo_tpu_torch.ops.compact.compact_hits`).
+    CPU tensors take :func:`scan_block_reference`; CUDA tensors the route
+    :func:`fused_plan` gives the shape, and a failed build or launch
+    raises."""
+    _check_rows(rows, k, lut, min_scores, vbits)
+    dev = lut.device
+    _check_block(dev, lut.shape[2], cutoffs, comp_size, bases, count, idx,
+                 more)
+    if dev.type == "cpu":
+        return scan_block_reference(rows, vbits, lut, min_scores, k, cutoffs,
+                                    comp_size, bases, count, idx, more)
+    if dev.type != "cuda":
+        raise ValueError(f"scan_runs: unsupported device {dev}")
+    plan = fused_plan(lut.shape[2], k, rows.r, comp_size,
+                      kernels.smem_block(dev.index))
+    if plan["route"] == "fused":
+        return _launch_fused(rows, k, lut, min_scores, vbits, cutoffs,
+                             comp_size, bases, count, idx, more)
+    scores = _launch(rows, k, lut, min_scores, vbits)
+    return (exact_hist(scores, comp_size, bases),
+            compact_hits(scores, cutoffs, count, idx, more))

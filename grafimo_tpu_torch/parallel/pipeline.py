@@ -12,10 +12,11 @@ on its own block:
   by one, so nothing is padded);
 * PWM columns split the same way over ``motif``;
 * histograms are summed over ``data`` and concatenated over ``motif`` on
-  the host, in int64; each run-scan shard's hits are packed into hit
-  bits on its device (``ops/compact.py``), as the reference's are, and
-  come back as global ``(row, offset, column)`` rows in C order, with hit
-  counts per motif column.
+  the host, in int64; each run-scan shard is one
+  ``ops/score_runs.scan_block`` (the fused kernel on a card), whose hits
+  come packed into hit bits, as the reference's are, and back as global
+  ``(row, offset, column)`` rows in C order, with hit counts per motif
+  column.
 
 Every shard is launched before the first result is read back: reading a
 shard waits for its device, and a wait per shard would serialize the
@@ -28,12 +29,12 @@ import numpy as np
 import torch
 
 from grafimo_tpu_torch.device import split_rows
-from grafimo_tpu_torch.ops.compact import compact_hits
 from grafimo_tpu_torch.ops.score_runs import (
     genome_planes_to_device,
+    packed_rows,
     pwm_lut_from_kernel,
-    scan_runs_device,
-    scan_runs_resident,
+    resident_rows,
+    scan_block,
     unpack_hitbits,
 )
 from grafimo_tpu_torch.ops.score_windows import (
@@ -120,15 +121,19 @@ def sharded_scan_step(grid: Grid, hist_size: int):
     return run
 
 
-def _shard_hits(scores, cutoffs):
-    """A shard's packed hit bits (``ops/compact.py``; the CUDA kernel on a
-    card), as the reference's shards return them; no indices."""
-    dev = scores.device
-    return compact_hits(
-        scores, torch.as_tensor(cutoffs, device=dev),
+def _shard_scan(rows, vbits, pwm_kernel, min_scores, cutoffs, k: int,
+                hist_size: int, dev):
+    """A shard's ``(hist, hit bits, Noff)`` from one
+    ``ops/score_runs.scan_block`` over its columns of the PWM, as the
+    reference's shards return them: its histogram unremapped, its hits as
+    packed bits (no indices)."""
+    hist, bits = scan_block(
+        rows, vbits, pwm_lut_from_kernel(pwm_kernel, dev),
+        torch.as_tensor(min_scores, device=dev), k,
+        torch.as_tensor(cutoffs, device=dev), hist_size, None,
         torch.empty(1, dtype=torch.int32, device=dev),
-        torch.empty(0, dtype=torch.int32, device=dev),
-    )
+        torch.empty(0, dtype=torch.int32, device=dev))
+    return hist, bits, rows.r - k + 1
 
 
 def _merge(pending, hist_size: int, m: int):
@@ -151,9 +156,9 @@ def _merge(pending, hist_size: int, m: int):
 
 
 def sharded_run_scan(grid: Grid, k: int, hist_size: int):
-    """The run scan over ``grid`` (``ops/score_runs.scan_runs_device``,
-    counted by ``hist.cu`` on a card): returns ``run(packed, nbits, vbits,
-    pwm_kernel, min_scores, cutoffs) -> (hist, hits, hit_counts)`` with
+    """The run scan over ``grid`` (``ops/score_runs.packed_rows`` through
+    ``scan_block``): returns ``run(packed, nbits, vbits, pwm_kernel,
+    min_scores, cutoffs) -> (hist, hits, hit_counts)`` with
     ``packed (B, R/4) uint8``, ``nbits (B, R/8)`` and ``vbits (B,
     ceil(Noff/8))`` host planes (``nbits``/``vbits`` may be None),
     ``pwm_kernel (k, 4, M)`` and
@@ -170,15 +175,10 @@ def sharded_run_scan(grid: Grid, k: int, hist_size: int):
         cuts = np.asarray(cutoffs, dtype=np.int32)
         pending = []
         for dev, rows, cols in _shards(grid, packed.shape[0], m):
-            hist, scores = scan_runs_device(
-                _put(packed, rows, dev), _put(nbits, rows, dev),
-                _put(vbits, rows, dev),
-                pwm_lut_from_kernel(pwm_kernel[:, :, cols], dev),
-                torch.as_tensor(mins[cols], device=dev), k, hist_size,
-            )
-            pending.append((rows, cols, hist,
-                            _shard_hits(scores, cuts[cols]),
-                            scores.shape[1]))
+            pending.append((rows, cols, *_shard_scan(
+                packed_rows(_put(packed, rows, dev), _put(nbits, rows, dev)),
+                _put(vbits, rows, dev), pwm_kernel[:, :, cols], mins[cols],
+                cuts[cols], k, hist_size, dev)))
         return _merge(pending, hist_size, m)
 
     return run
@@ -187,9 +187,9 @@ def sharded_run_scan(grid: Grid, k: int, hist_size: int):
 def sharded_resident_scan(grid: Grid, r: int, k: int, hist_size: int,
                           with_n: bool = False):
     """The device-resident backbone scan over ``grid``
-    (``ops/score_runs.scan_runs_resident``): the packed chromosome is
-    copied once to each distinct device, row descriptors split over
-    ``data``, PWM columns over ``motif``.  Returns ``run(genome4,
+    (``ops/score_runs.resident_rows`` through ``scan_block``): the packed
+    chromosome is copied once to each distinct device, row descriptors
+    split over ``data``, PWM columns over ``motif``.  Returns ``run(genome4,
     [ngenome,] gstart, vbits, pwm_kernel, min_scores, cutoffs) -> (hist,
     hits, hit_counts)`` as :func:`sharded_run_scan`; the genome planes are
     uint32 words (``ops/score_runs.bytes_to_words``)."""
@@ -211,14 +211,10 @@ def sharded_resident_scan(grid: Grid, r: int, k: int, hist_size: int,
                 planes[str(dev)] = genome_planes_to_device(genome4, ngenome,
                                                            dev)
             g4, gn = planes[str(dev)]
-            hist, scores = scan_runs_resident(
-                g4, gn, _put(gstart, rows, dev), _put(vbits, rows, dev),
-                pwm_lut_from_kernel(pwm_kernel[:, :, cols], dev),
-                torch.as_tensor(mins[cols], device=dev), r, k, hist_size,
-            )
-            pending.append((rows, cols, hist,
-                            _shard_hits(scores, cuts[cols]),
-                            scores.shape[1]))
+            pending.append((rows, cols, *_shard_scan(
+                resident_rows(g4, gn, _put(gstart, rows, dev), r),
+                _put(vbits, rows, dev), pwm_kernel[:, :, cols], mins[cols],
+                cuts[cols], k, hist_size, dev)))
         return _merge(pending, hist_size, m)
 
     return run

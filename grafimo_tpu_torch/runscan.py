@@ -7,10 +7,10 @@ regions), as in the reference:
    of :mod:`grafimo_tpu_torch.native`) -- no window materialisation;
 2. :func:`scan_batches` streams the batches to one or more torch
    devices, each slice's rows split over them, where
-   ``ops/score_runs.py`` scores every stride-1 window on both strands
-   and histograms the integer scores over each column's reachable range,
-   and ``ops/compact.py`` compacts the hits (CUDA kernels on a card); the
-   host reads each device's hits once per flush block of slices;
+   ``ops/score_runs.scan_block`` scores every stride-1 window on both
+   strands, histograms the integer scores over each column's reachable
+   range and compacts the hits (one fused CUDA launch a block on a card);
+   the host reads each device's hits once per flush block of slices;
 3. the host reconstructs metadata for hits only, computes exact p-values
    and exact BH q-values from the histogram, and assembles the report.
    In a multi-process run (``parallel/cluster.py``) the histograms are
@@ -51,7 +51,6 @@ from grafimo_tpu_torch.graph.sitegraph import SiteGraph
 from grafimo_tpu_torch.models.motif import Motif
 from grafimo_tpu_torch.models.pvalue import PvalueLookup
 from grafimo_tpu_torch.report.results import apply_report_filters, build_results_df
-from grafimo_tpu_torch.ops.compact import compact_hits
 from grafimo_tpu_torch.ops.qvalue import qvalues_from_histogram
 from grafimo_tpu_torch.device import split_rows
 from grafimo_tpu_torch.parallel import cluster
@@ -61,14 +60,15 @@ from grafimo_tpu_torch.ops.score_runs import (
     hist_size_for_width,
     pack_bits,
     pack_run_seqs,
+    packed_rows,
+    patched_rows,
     pwm_lut_from_kernel,
     pwms_to_conv_kernel,
+    resident_rows,
     reverse_complement_pwm,
-    scan_runs_device,
-    scan_runs_resident,
-    scan_runs_resident_patched,
-    scan_runs_resident_spliced,
-    scan_runs_resident_strided,
+    scan_block,
+    spliced_rows,
+    strided_rows,
     unpack_hitbits,
 )
 
@@ -920,42 +920,28 @@ def _as_devices(devices) -> List[torch.device]:
     return out
 
 
-def _scan_block(batch: DeviceBatch, rows: slice, vb, strided: bool,
-                on: _OnDevice, dev: torch.device, k: int, comp_size: int):
-    """One device's block of a slice through the batch's kind: ``(hist,
-    masked scores)`` on ``dev`` (``ops/score_runs.py``)."""
-    common = (on.lut, on.mins)
+def _block_rows(batch: DeviceBatch, rows: slice, strided: bool,
+                dev: torch.device, k: int):
+    """One device's block of a slice as its batch kind's rows on ``dev``
+    (``ops/score_runs.py``)."""
     if batch.gstart is None:
         nb = batch.nbits[rows]
-        nb = _put(nb, dev) if nb.any() else None
-        return scan_runs_device(
-            _put(batch.packed[rows], dev), nb, vb, *common, k, comp_size,
-            hist_bases=on.bases,
-        )
+        return packed_rows(_put(batch.packed[rows], dev),
+                           _put(nb, dev) if nb.any() else None)
     g4, gn = _genome_on(batch.graph, dev)
     gs = batch.gstart[rows]
     if batch.patches is not None:
         pt = _put(batch.patches[rows], dev)
         if batch.splice is not None:
-            return scan_runs_resident_spliced(
-                g4, gn, _put(gs, dev), _put(batch.splice[rows], dev), pt, vb,
-                *common, batch.R, k, comp_size, hist_bases=on.bases,
-            )
-        return scan_runs_resident_patched(
-            g4, gn, _put(gs, dev), pt, vb, *common, batch.R, k, comp_size,
-            hist_bases=on.bases,
-        )
+            return spliced_rows(g4, gn, _put(gs, dev),
+                                _put(batch.splice[rows], dev), pt, batch.R)
+        return patched_rows(g4, gn, _put(gs, dev), pt, batch.R)
     if strided:
         # the kind raises on a span past the padded plane (reference
         # runscan.py:1596-1612)
-        return scan_runs_resident_strided(
-            g4, gn, int(gs[0]), vb, *common, len(gs), batch.R - k + 1,
-            batch.R, k, comp_size, hist_bases=on.bases,
-        )
-    return scan_runs_resident(
-        g4, gn, _put(gs, dev), vb, *common, batch.R, k, comp_size,
-        hist_bases=on.bases,
-    )
+        return strided_rows(g4, gn, int(gs[0]), len(gs), batch.R - k + 1,
+                            batch.R)
+    return resident_rows(g4, gn, _put(gs, dev), batch.R)
 
 
 def scan_batches(
@@ -980,10 +966,11 @@ def scan_batches(
     (``runscan.py:1471-1667``); a strided slice's blocks each start
     ``block_start * stride`` further into the genome (``:1116-1125``).
 
-    Each device keeps a compressed int64 histogram, read back once at the
-    end, expanded and summed on the host.  Hits are compacted on the
-    device (``ops/compact.py``, the CUDA kernel on a card) and nothing is
-    read per slice: every ``SCAN_FLUSH_SLICES`` slices, and once at the
+    Each block is one :func:`~grafimo_tpu_torch.ops.score_runs.scan_block`
+    (the fused CUDA kernel on a card): its compressed histogram goes into
+    the device's int64 one, read back once at the end, expanded and summed
+    on the host; its hits are compacted on the device and nothing is read
+    per slice: every ``SCAN_FLUSH_SLICES`` slices, and once at the
     end, the host reads each device's flush block in one copy, then each
     block's hits by its tier (``SCAN_SMALLK``, ``SCAN_TOPK``; reference
     ``:1427-1469, 1686-1710``).  Hit rows map back through ``lo +
@@ -1154,13 +1141,14 @@ def scan_batches(
                 vb = batch.vbits[rows]
                 vb = None if (vb == full_row).all() else _put(vb, dev)
                 o = on[str(dev)]
-                hist, scores = _scan_block(batch, rows, vb, strided, o, dev,
-                                           k, comp_size)
-                o.acc += hist
                 slot = o.block[o.used]
                 more = torch.empty(max(0, topk - smallk), dtype=torch.int32,
                                    device=dev)
-                bits = compact_hits(scores, o.cuts, slot[:1], slot[1:], more)
+                hist, bits = scan_block(
+                    _block_rows(batch, rows, strided, dev, k), vb, o.lut,
+                    o.mins, k, o.cuts, comp_size, o.bases, slot[:1],
+                    slot[1:], more)
+                o.acc += hist
                 pending.append(_Pending(batch, rows.start, o, o.used, more,
                                         bits))
                 o.used += 1

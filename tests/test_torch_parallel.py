@@ -387,10 +387,10 @@ def test_scan_batches_split_matches_reference(case, n, monkeypatch):
             return fn(*args, **kwargs)
         return call
 
-    monkeypatch.setattr(port_rs, "scan_runs_resident_strided", counted(
-        "strided", port_rs.scan_runs_resident_strided))
-    monkeypatch.setattr(port_rs, "scan_runs_resident", counted(
-        "gather", port_rs.scan_runs_resident))
+    monkeypatch.setattr(port_rs, "strided_rows", counted(
+        "strided", port_rs.strided_rows))
+    monkeypatch.setattr(port_rs, "resident_rows", counted(
+        "gather", port_rs.resident_rows))
     params = _scan_params(CASES[case][1])
     got = port_rs.scan_batches(_make(case, port_rs, 11), *params, [CPU] * n)
     one = port_rs.scan_batches(_make(case, port_rs, 11), *params, CPU)

@@ -224,9 +224,9 @@ def test_counts_take_the_plain_version_on_cpu():
     port.reset_counts()
     for kind in KINDS:
         _run_both(kind, rng, 5, 64, 2, 4, True, True)
-    assert port.COUNTS == {"kernel": 0, "plain": len(KINDS)}
+    assert port.COUNTS == {"kernel": 0, "fused": 0, "plain": len(KINDS)}
     port.reset_counts()
-    assert port.COUNTS == {"kernel": 0, "plain": 0}
+    assert port.COUNTS == {"kernel": 0, "fused": 0, "plain": 0}
 
 
 def _gathered_args():
@@ -330,5 +330,5 @@ def test_kernel_matches_plain_on_card(kind):
     _, got = kernel(*head, lut, mins, *tail, 19 * 1000 + 1)
     want = plain(*head, lut, mins, *tail)
     torch.cuda.synchronize()
-    assert port.COUNTS == {"kernel": 1, "plain": 1}
+    assert port.COUNTS == {"kernel": 1, "fused": 0, "plain": 1}
     assert torch.equal(got, want)

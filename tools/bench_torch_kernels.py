@@ -24,7 +24,10 @@ give them:
   as many rows as it holds; CTCF forward and
   reverse complement, validity bits, 16 patch slots, two splice pairs):
   the tree's ``scan_runs_*`` function, its scores and compressed
-  histogram, whatever it launches for them.
+  histogram, whatever it launches for them; then the whole block's
+  device work at CTCF's p < 1e-4 cutoff -- the three launches (that
+  function, then ``compact_hits`` of its scores) and, in a tree with the
+  fused entry ``scan_block``, its one launch.
 
 Per case: the median of 10 single calls and the mean of 100 calls issued
 back to back (CUDA events), and the device time per call of everything
@@ -46,17 +49,21 @@ WINDOW_BATCH = 2653  # window rows of one 500 bp peak (both strands)
 
 
 def _ctcf(root):
-    """CTCF's integer score matrix and min score, read by the tree's own
-    motif loader (older trees of the port used the reference's)."""
+    """CTCF's integer score matrix, min score and p < 1e-4 score cutoff,
+    read by the tree's own motif loader (older trees of the port used the
+    reference's)."""
     motif = os.path.join(root, "tests", "data", "input", "MA0139.1.meme")
     try:
         from grafimo_tpu_torch.models.parse import load_motifs
+        from grafimo_tpu_torch.models.pvalue import PvalueLookup
         from grafimo_tpu_torch.utils.constants import UNIF
     except ImportError:
         from grafimo_tpu.models.parse import load_motifs
+        from grafimo_tpu.models.pvalue import PvalueLookup
         from grafimo_tpu.utils.constants import UNIF
     m = load_motifs(motif, UNIF, 0.1, False)[0]
-    return m.score_matrix, m.min_score
+    return (m.score_matrix, m.min_score,
+            PvalueLookup(m.pval_table).score_cutoff(1e-4))
 
 
 def _timed(torch, fn):
@@ -93,7 +100,7 @@ def _timed(torch, fn):
             "device_ms": device_us / 20 / 1e3}
 
 
-def _run_engine_cases(torch, rng, dev, case, th, lut2, min_score):
+def _run_engine_cases(torch, rng, dev, case, th, lut2, min_score, cut):
     """The compressed histogram and the five batch kinds' slice blocks."""
     import inspect
     import types
@@ -178,6 +185,35 @@ def _run_engine_cases(torch, rng, dev, case, th, lut2, min_score):
         case(f"run engine block {kind} ({rows}, {r}) CTCF M=2", fn)
         torch.cuda.empty_cache()
 
+    # the block's whole device work: scores, histogram and hits
+    from grafimo_tpu_torch.ops.compact import compact_hits
+
+    cuts = torch.full((2,), cut, dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    idx = torch.empty(1 << 10, dtype=torch.int32, device=dev)
+    more = torch.empty((1 << 13) - (1 << 10), dtype=torch.int32, device=dev)
+    for kind, fn in blocks.items():
+        rows = bs if kind == "strided" else b
+        name = f"run engine block {kind} ({rows}, {r}) CTCF M=2, p < 1e-4"
+
+        def three(fn=fn):
+            compact_hits(fn()[1], cuts, count, idx, more)
+
+        case(f"{name}: three launches", three)
+        if hasattr(sr, "scan_block"):
+            block = {
+                "packed": sr.packed_rows(packed, nbits),
+                "gathered": sr.resident_rows(g4, gn, gs, r),
+                "strided": sr.strided_rows(g4, gn, lo, bs, noff, r),
+                "patched": sr.patched_rows(g4, gn, gs, pt, r),
+                "spliced": sr.spliced_rows(g4, gn, gs, sp, pt, r),
+            }[kind]
+            vbk = vb[:bs] if kind == "strided" else vb
+            case(f"{name}: scan_block",
+                 lambda: sr.scan_block(block, vbk, lut2, mins, k, cuts, hs,
+                                       bases, count, idx, more))
+        torch.cuda.empty_cache()
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -215,7 +251,7 @@ def main() -> int:
         out["cases"][name] = _timed(torch, fn)
         print(name, out["cases"][name], flush=True)
 
-    mat, min_score = _ctcf(root)
+    mat, min_score, cut = _ctcf(root)
     lut2 = pwm_lut_from_kernel(
         pwms_to_conv_kernel([mat, reverse_complement_pwm(mat)]), dev)
     lut1 = pwm_lut_from_kernel(pwms_to_conv_kernel([mat]), dev)
@@ -266,7 +302,7 @@ def main() -> int:
             hist_dev[:, 0] += h[:, 0]
     case(f"window engine region B={WINDOW_BATCH} (device work)", one_region)
     del big, hist_dev
-    _run_engine_cases(torch, rng, dev, case, th, lut2, min_score)
+    _run_engine_cases(torch, rng, dev, case, th, lut2, min_score, cut)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     return 0
