@@ -39,7 +39,7 @@ raises and the script exits non-zero:
    (M = 40) and on its cluster path (k = 70), and at the window engine's
    region batch;
 8. the per-window engine (``findmotif --engine windows``) on phase 5's
-   graph over a seeded set of 1,000 peak-sized regions: on the card,
+   graph over a seeded set of 500 peak-sized regions: on the card,
    where it must launch the fused kernel once per region, and neither a
    plain version nor a separate histogram, then on the CPU, whose report
    must be byte-identical, then the run engine on the card (one fused
@@ -89,13 +89,25 @@ raises and the script exits non-zero:
     the hit tiers (flush read, the block's indices, past the index
     capacity at p < 1e-3, dense at ``-t 1``), M = 16 and 40 in column
     groups, both sides of the bin count at which a column stops fitting
-    one block, and k = 70 on the route the plan gives it; beside each,
-    the three launches it replaces, timed in the same call;
+    one block, k = 70 on the route the plan gives it, and the 800-PWM
+    ladder's blocks (``synth_meme``, seed 0: every motif of the
+    narrowest, the modal and the widest width, p < 1e-6, at the rows
+    ``runscan.slice_rows`` gives them; the plain version in row ranges);
+    beside each, the three launches it replaces, timed in the same call;
 16. the three-launch route end to end: a 70-wide motif whose bins
     outgrow one block on 100 kbp of phase 5's chromosome, one unfused
     ``scan_runs.cu``, one ``hist.cu`` (on a cluster) and one
     ``compact.cu`` launch a slice block and no fused launch on the card,
-    the cuda TSV and GFF3 byte-identical to the cpu ones.
+    the cuda TSV and GFF3 byte-identical to the cpu ones;
+17. many motifs: ``synth_meme``'s 800 PWMs (BASELINE config 5, seed 0)
+    through ``findmotif --text-only`` over phase 5's pocket region on the
+    card, 22 widths, one fused launch a slice block, the three launches
+    only where the plan gives them; its narrowest, a modal-width and its
+    widest motif, each alone in its width's pass, on the card and on the
+    CPU, each report's rows byte-identical to the ladder's; then 24
+    small per-chromosome graphs (BASELINE config 4) through ``findmotif
+    -d`` with two widths, the cuda TSV and GFF3 byte-identical to the
+    cpu ones.
 
 Phase 5's whole-chromosome run and phase 9's scans also check the
 device->host reads (``runscan.READS``): one per device and flush block of
@@ -105,17 +117,18 @@ histogram read per device, never one per slice.  Phases 4, 5, 8, 9, 10,
 block on the run engine's paths, no unfused scoring, no ``hist.cu`` or
 ``compact.cu`` launch and no plain version there (``hist.cu`` and
 ``compact.cu`` are held in phases 3, 7 and 13, and beside each case of
-phase 15).
+phase 15); phase 17 counts every route's launches and wants the fused
+kernel, the three launches only where the plan gives them.
 
 Each kernel case prints its time as the median of 10 single launches and
 as the mean of 100 back-to-back launches (CUDA events), its device time
 per launch (``torch.profiler``), the plain version's time, the time of
 one PyTorch call computing the same function where there is one
 (``torch.bincount`` for the histogram, ``torch.nonzero`` of the hit
-predicate for the compaction, ``conv1d`` of the one-hot rows for the
-scoring core; none scores, counts and compacts a slice block in one
-call), and its bound: the bytes the function must move over the
-card's 3.35 TB/s, or its int32 adds over 16.75 T/s (a quarter of the
+predicate for the compaction, ``conv1d`` of the one-hot rows or
+windows for the scoring cores; none scores, counts and compacts a slice
+block in one call), and its bound: the bytes the function must move
+over the card's 3.35 TB/s, or its int32 adds over 16.75 T/s (a quarter of the
 67 TFLOP/s float32 rate: an SM issues 64 int32 adds a clock against 128
 float32 FMAs) where those take longer.
 
@@ -145,6 +158,10 @@ MOTIF = os.path.join(HERE, "tests", "data", "input", "MA0139.1.meme")
 BLOCK_JAX = ("import sys; "
              "sys.modules['jax'] = sys.modules['grafimo_tpu'] = None\n")
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's device memory rate
+# the JASPAR-CORE-scale ladder (BASELINE config 5): synth_meme's PWMs,
+# seed 0, and tools/bench_jaspar_ladder.py's threshold
+LADDER_MOTIFS = 800
+LADDER_T = 1e-6
 
 # inputs at the 1KGP profile, written by the port's copy of the
 # benchmark tool's generators (1/30 bp variants, 12% indels, 3 dense
@@ -286,16 +303,18 @@ def _device_ms(torch, fn, kernel, reps=20, per_call=False):
     return total / (reps if per_call else count) / 1e3
 
 
-def _timings(torch, fn, kernel, plain=None, library=None):
+def _timings(torch, fn, kernel, plain=None, library=None,
+             reps=(10, 100, 20)):
     """A kernel case's times in ms: ``ms`` (median of 10 single launches),
-    ``ms_back_to_back`` (mean of 100), ``device_ms`` (profiler),
-    ``plain_ms`` and ``library_ms`` (median of 10 single calls)."""
+    ``ms_back_to_back`` (mean of 100), ``device_ms`` (profiler, 20),
+    ``plain_ms`` and ``library_ms`` (median of 10 single calls); a large
+    case passes fewer ``reps`` (single calls, back to back, profiled)."""
     return {
-        "ms": _time_ms(torch, fn),
-        "ms_back_to_back": _back_to_back_ms(torch, fn),
-        "device_ms": _device_ms(torch, fn, kernel),
-        "plain_ms": _time_ms(torch, plain) if plain else None,
-        "library_ms": _time_ms(torch, library) if library else None,
+        "ms": _time_ms(torch, fn, reps[0]),
+        "ms_back_to_back": _back_to_back_ms(torch, fn, reps[1]),
+        "device_ms": _device_ms(torch, fn, kernel, reps[2]),
+        "plain_ms": _time_ms(torch, plain, reps[0]) if plain else None,
+        "library_ms": _time_ms(torch, library, reps[0]) if library else None,
     }
 
 
@@ -552,8 +571,9 @@ def phase_cuda_vs_cpu(torch):
         f"scan_runs.cu launches on cuda, the plain version on cpu)")
 
 
-def _findmotif(argv):
-    """The port's CLI in this process, its stdout captured and echoed."""
+def _findmotif(argv, echo=True):
+    """The port's CLI in this process, its stdout captured and (its
+    summary lines) echoed."""
     from grafimo_tpu_torch.cli import main
 
     buf = io.StringIO()
@@ -562,7 +582,7 @@ def _findmotif(argv):
         rc = main(argv)
     dt = time.perf_counter() - t0
     text = buf.getvalue()
-    for line in text.splitlines():
+    for line in text.splitlines() if echo else ():
         if line.startswith(("Scanned", "run scan", "wire", "width",
                             "compute backend", "window scan")):
             log(f"    {line}")
@@ -594,14 +614,19 @@ def _check_reads(label, reads, flush_blocks, n_devices):
             f"and {reads['hist']} histogram reads)")
 
 
-def _n_slices(batches, m, n_devices):
-    """The slices ``runscan.scan_batches`` cuts ``batches`` into on the
-    card, ``n_devices`` blocks a slice."""
+def _slicing(batches, devices):
+    """``(slices, flush reads a device, non-empty blocks)`` of CTCF's scan
+    of ``batches`` on ``devices``, by ``runscan.plan_slices``: each
+    slice's rows split into one contiguous block a device."""
     import grafimo_tpu_torch.runscan as rb
+    from grafimo_tpu_torch.device import split_rows
 
-    cap = rb.MAX_BASES_PER_DISPATCH // max(1, m // 4)
-    return sum(
-        -(-len(b.chunks) // (max(1, cap // b.R) * n_devices)) for b in batches)
+    kernel, _, _, k, _ = _ctcf_scan_inputs()
+    plan = rb.plan_slices(batches, k, kernel.shape[-1],
+                          rb.hist_layout(kernel)[2], devices)
+    blocks = sum(b0 != b1 for _, lo, hi, _ in plan
+                 for b0, b1 in split_rows(hi - lo, len(devices)))
+    return len(plan), sum(flush for *_, flush in plan), blocks
 
 
 def _one_fused_launch_a_block(what, blocks=None):
@@ -623,23 +648,6 @@ def _one_fused_launch_a_block(what, blocks=None):
             f"block" + (f" ({blocks})" if blocks is not None else "")
             + " and nothing else")
     return fused
-
-
-def _n_blocks(batches, m, n_devices):
-    """The non-empty blocks ``runscan.scan_batches`` launches for
-    ``batches`` on ``n_devices`` devices: each slice's rows split into one
-    contiguous block a device."""
-    import grafimo_tpu_torch.runscan as rb
-    from grafimo_tpu_torch.device import split_rows
-
-    cap = rb.MAX_BASES_PER_DISPATCH // max(1, m // 4)
-    blocks = 0
-    for b in batches:
-        per = max(1, cap // b.R) * n_devices
-        for lo in range(0, len(b.chunks), per):
-            rows = min(per, len(b.chunks) - lo)
-            blocks += sum(b0 != b1 for b0, b1 in split_rows(rows, n_devices))
-    return blocks
 
 
 def phase_main_path(torch, wd):
@@ -682,11 +690,9 @@ def phase_main_path(torch, wd):
     graph = load_graph_file(os.path.join(gdir, "21.gvt.npz"))
     batches = rb.batch_runs(rb.build_region_runs(
         graph, "21", [(0, synth["length"])], 19), 19)
-    slices = _n_slices(batches, 2, 1)
+    slices, flushes, _ = _slicing(batches, [torch.device("cuda", 0)])
     _one_fused_launch_a_block("whole-chromosome findmotif", slices)
-    read_line = _check_reads(
-        "whole-chromosome findmotif", reads,
-        -(-slices // rb.SCAN_FLUSH_SLICES), 1)
+    read_line = _check_reads("whole-chromosome findmotif", reads, flushes, 1)
     _, n_hits = _report(os.path.join(wd, "out_whole"))
     m = re.search(r"run scan: \d+ device batches, (\d+) windows/strand, "
                   r"(\d+) raw hits \(([\d.]+)s\)", text)
@@ -754,6 +760,34 @@ def _scan_bound_ms(b, k, m, out_bytes=None):
     return (nbytes + (out_bytes or 0)) / HBM_BYTES_PER_S * 1e3
 
 
+def _window_conv1d(torch, packed, flags, lut, mins, scores):
+    """The ``conv1d`` yardstick of the packed-window scoring: the one-hot
+    windows ``(B, 4, k)`` (built outside the timed call) against the LUT
+    as ``(M, 4, k)`` weights, TF32 off; checked equal to ``scores`` once
+    the N and PAD rows are masked.  Returns the call to time."""
+    import torch.nn.functional as F
+
+    from grafimo_tpu_torch.ops.pack import FLAG_N, FLAG_PAD
+
+    b, k = packed.shape[0], lut.shape[0]
+    shifts = torch.arange(4, device=packed.device) * 2
+    codes = ((packed.to(torch.int64)[:, :, None] >> shifts) & 3).reshape(
+        b, -1)[:, :k]
+    onehot = F.one_hot(codes, 4).permute(0, 2, 1).float().contiguous()
+    weight = lut.permute(2, 1, 0).float().contiguous()
+
+    def conv():
+        return F.conv1d(onehot, weight)
+
+    raw = conv()[:, :, 0].round().to(torch.int32)
+    f = flags.to(torch.int64)[:, None]
+    raw = torch.where(f == FLAG_N, mins[None, :], raw)
+    raw = torch.where(f == FLAG_PAD, torch.full_like(raw, -1), raw)
+    if not torch.equal(raw, scores):
+        raise RuntimeError("conv1d yardstick != scan_packed scores")
+    return conv
+
+
 def phase_scan_packed_vs_plain(torch):
     from grafimo_tpu_torch.ops.scan_packed import (
         score_packed,
@@ -786,13 +820,20 @@ def phase_scan_packed_vs_plain(torch):
                                f"max err {err}")
         if frac and not ((got == -1).any() and (flags == 1).any()):
             raise RuntimeError(f"{label}: no N or PAD rows drawn")
-        t = _timings(
-            torch, lambda: score_packed(packed, flags, lut, mins),
-            "scan_packed_kernel",
-            plain=lambda: score_packed_reference(packed, flags, lut, mins))
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            t = _timings(
+                torch, lambda: score_packed(packed, flags, lut, mins),
+                "scan_packed_kernel",
+                plain=lambda: score_packed_reference(packed, flags, lut,
+                                                     mins),
+                library=_window_conv1d(torch, packed, flags, lut, mins, got))
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
         bound = _scan_bound_ms(b, k, m)
         log(f"score_packed vs plain [{label}] packed {tuple(packed.shape)} "
-            f"M={m}: bit-identical, max_abs_err 0; {_fmt(t, bound)}")
+            f"M={m}: bit-identical, max_abs_err 0, conv1d equal; "
+            f"{_fmt(t, bound, 'conv1d')}")
         out.append(dict(t, label=label, max_abs_err=err, bound_ms=bound))
         del packed, flags, lut, mins, got, want
     torch.cuda.empty_cache()
@@ -830,14 +871,21 @@ def _fused_case(torch, label, calls, lut, mins, hist_size):
     packed, flags = calls[0]
     bound = _scan_bound_ms(packed.shape[0], lut.shape[0], m,
                            out_bytes=touched * 16)
-    t = _timings(
-        torch, lambda: sp.score_packed_hist(packed, flags, lut, mins, hist),
-        "scan_packed_kernel",
-        plain=lambda: sp.score_packed_hist_reference(packed, flags, lut, mins,
-                                                     want_hist))
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t = _timings(
+            torch,
+            lambda: sp.score_packed_hist(packed, flags, lut, mins, hist),
+            "scan_packed_kernel",
+            plain=lambda: sp.score_packed_hist_reference(packed, flags, lut,
+                                                         mins, want_hist),
+            library=_window_conv1d(torch, packed, flags, lut, mins,
+                                   sp.score_packed(packed, flags, lut, mins)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
     log(f"fused score+count vs plain [{label}] {len(calls)} calls, first "
         f"packed {tuple(packed.shape)}, M={m}, {hist_size} bins: scores and "
-        f"int64 histogram bit-identical; {_fmt(t, bound)}")
+        f"int64 histogram bit-identical; {_fmt(t, bound, 'conv1d (scores)')}")
     return dict(t, label=label, max_abs_err=err, bound_ms=bound)
 
 
@@ -928,7 +976,9 @@ def phase_hist_variants(torch):
     return out
 
 
-PEAKS = 1000  # a ChIP-seq peak set on one chromosome
+# a ChIP-seq peak set on one chromosome (1,000 until phase 17 came: the
+# smoke's depth is cut here to keep it near half its time limit)
+PEAKS = 500
 PEAK_BP = 500
 WINDOW_BATCH = 2653  # window rows of one peak (both strands), on average
 
@@ -1100,11 +1150,11 @@ def phase_multi_device(torch, wd, gdir, batches):
         res = rb.scan_batches(batches, *params, configs[name])
         seconds[name].append(res.scoring_time)
         devs = configs[name]
+        _, flushes, blocks = _slicing(batches, devs)
         launches[name] = _one_fused_launch_a_block(
-            f"10 Mbp scan on {name}", _n_blocks(batches, 2, len(devs)))
+            f"10 Mbp scan on {name}", blocks)
         reads[name] = _check_reads(
-            f"10 Mbp scan on {name}", dict(rb.READS),
-            -(-_n_slices(batches, 2, len(devs)) // rb.SCAN_FLUSH_SLICES),
+            f"10 Mbp scan on {name}", dict(rb.READS), flushes,
             len({str(d) for d in devs}))
         results.setdefault(name, res)
     want = results["1 shard"]
@@ -1662,6 +1712,217 @@ def phase_three_launch_route(torch, wd, gdir, synth):
     return launches
 
 
+LADDER_FINDMOTIF_T = 1e-5  # phase 17's ladder: a few report rows a motif
+THREE = ("scan_runs", "exact_hist", "compact_hits")  # the three launches
+GENOME_CHROMS = [str(i) for i in range(1, 23)] + ["X", "Y"]
+
+
+def _captured_findmotif(argv):
+    """``_findmotif``, with the report's frames by motif id captured from
+    ``workflows._scan_runs`` as the CLI writes or prints them."""
+    import grafimo_tpu_torch.workflows as wf
+
+    real, frames = wf._scan_runs, {}
+
+    def scan(*args, **kwargs):
+        out = real(*args, **kwargs)
+        frames.update(out)
+        return out
+
+    wf._scan_runs = scan
+    try:
+        text, dt = _findmotif(argv, echo=False)
+    finally:
+        wf._scan_runs = real
+    return frames, text, dt
+
+
+def _motifs_meme(meme, motif_ids, path):
+    """The MEME file ``meme`` with the motifs ``motif_ids`` alone."""
+    with open(meme) as f:
+        head, *blocks = f.read().split("\nMOTIF ")
+    kept = [b.rstrip("\n") for b in blocks if b.split()[0] in motif_ids]
+    with open(path, "w") as f:
+        f.write(head + "".join("\nMOTIF " + b + "\n" for b in kept))
+
+
+def _launches():
+    """The launches of every route since the counts were last reset."""
+    from grafimo_tpu_torch.ops import compact, hist
+    from grafimo_tpu_torch.ops import score_runs as sr
+
+    return {"scan_runs_fused": sr.COUNTS["fused"],
+            "scan_runs": sr.COUNTS["kernel"],
+            "exact_hist": hist.COUNTS["kernel"],
+            "compact_hits": compact.COUNTS["kernel"],
+            "plain": sr.COUNTS["plain"] + hist.COUNTS["plain"]
+            + compact.COUNTS["plain"]}
+
+
+def _reset_launches():
+    from grafimo_tpu_torch.ops import compact, hist
+    from grafimo_tpu_torch.ops import score_runs as sr
+
+    for counts in (sr, hist, compact):
+        counts.reset_counts()
+
+
+def _ladder_on_pocket(torch, wd, gdir):
+    """Phase 17 (a): the 800-PWM ladder through ``findmotif`` on phase
+    5's pocket region on the card; three sampled motifs alone on the card
+    and on the CPU give the ladder's report rows byte for byte."""
+    import grafimo_tpu_torch.runscan as rb
+    from grafimo_tpu_torch import kernels
+    from grafimo_tpu_torch.ops.score_runs import fused_plan
+
+    meme, by_width = _ladder_motifs(wd)
+    bed = os.path.join(wd, "pocket.bed")
+    t = str(LADDER_FINDMOTIF_T)
+    _reset_launches()
+    frames, text, dt = _captured_findmotif([
+        "findmotif", "-d", gdir, "-b", bed, "-m", meme, "-t", t,
+        "--text-only", "--device", "cuda"])
+    launches = _launches()
+    n_motifs = sum(len(v) for v in by_width.values())
+    if len(frames) != n_motifs or text.count("Scanned sequences:") != len(
+            by_width):
+        raise RuntimeError(f"800-PWM ladder: {len(frames)} reports, "
+                           f"{text.count('Scanned sequences:')} passes")
+    # the route each width's block takes at every row bucket
+    three = any(
+        fused_plan(2 * len(ms), k, r,
+                   rb.hist_layout(_ladder_kernel(ms, LADDER_T)[0])[2],
+                   kernels.smem_block(0))["route"] != "fused"
+        for k, ms in by_width.items() for r in rb.BUCKETS)
+    n3 = launches["scan_runs"]
+    if (launches["plain"] or launches["scan_runs_fused"] <= 0
+            or launches["exact_hist"] != n3 or launches["compact_hits"] != n3
+            or (n3 and not three)):
+        raise RuntimeError(f"800-PWM ladder: launches {launches}; want the "
+                           f"fused kernel, and the three launches only where "
+                           f"the plan gives them")
+    rows = sum(len(df) for df in frames.values())
+    log(f"800-PWM ladder ({len(by_width)} widths) on the pocket region on "
+        f"cuda, -t {t} --text-only: {rows} report rows, wall {dt:.2f}s, "
+        f"launches {launches}")
+    ks = sorted(by_width)
+    modal = max(ks, key=lambda w: len(by_width[w]))
+    # the three widths differ: each motif is alone in its width's pass
+    sampled = [by_width[w][0].motif_id for w in (ks[0], modal, ks[-1])]
+    alone = os.path.join(wd, "sampled.meme")
+    _motifs_meme(meme, sampled, alone)
+    for dev in ("cuda", "cpu"):
+        got, _, dt = _captured_findmotif([
+            "findmotif", "-d", gdir, "-b", bed, "-m", alone, "-t", t,
+            "--text-only", "--device", dev])
+        for mid in sampled:
+            if got[mid].to_csv(sep="\t") != frames[mid].to_csv(sep="\t"):
+                raise RuntimeError(f"800-PWM ladder: {mid} alone on {dev} "
+                                   f"differs from its ladder rows")
+        log(f"    {', '.join(sampled)} alone on {dev}: "
+            f"{[len(got[mid]) for mid in sampled]} rows, wall {dt:.2f}s")
+    if not sum(len(frames[mid]) for mid in sampled):
+        raise RuntimeError("800-PWM ladder: the sampled motifs have no rows")
+    log(f"800-PWM ladder: {', '.join(sampled)} (widths {ks[0]}, {modal}, "
+        f"{ks[-1]}) alone on cuda and cpu: report rows byte-identical to "
+        f"the ladder's")
+    return launches
+
+
+def _genome_directory(wd, rng):
+    """24 small per-chromosome graphs (``1``..``22``, ``X``, ``Y``; 1 kbp,
+    12 SNPs over 8 haplotypes each) in one directory, a BED of them and a
+    MEME file of two motifs of widths 9 and 13."""
+    from grafimo_tpu_torch.graph.sitegraph import build_graph
+    from grafimo_tpu_torch.io.vcf import VcfRecord
+
+    gdir = os.path.join(wd, "genome24")
+    os.makedirs(gdir)
+    bed = []
+    for chrom in GENOME_CHROMS:
+        seq = "".join(rng.choice(list("ACGT"), 1000))
+        records = []
+        for pos0 in sorted(rng.choice(range(5, 995), 12, replace=False)):
+            ref = seq[pos0]
+            alt = str(rng.choice([c for c in "ACGT" if c != ref]))
+            records.append(VcfRecord(chrom, int(pos0) + 1, ref, [alt],
+                                     [int(g) for g in rng.integers(0, 2, 8)]))
+        graph = build_graph(chrom, seq, records)
+        graph.save(os.path.join(gdir, f"{chrom}.gvt.npz"))
+        bed.append(f"chr{chrom}\t0\t{graph.length}\n")
+    with open(os.path.join(wd, "genome24.bed"), "w") as f:
+        f.writelines(bed)
+    lines = ["MEME version 4", "", "ALPHABET= ACGT", ""]
+    for mid, w in (("W9", 9), ("W13", 13)):
+        lines += [f"MOTIF {mid}", "letter-probability matrix: alength= 4 "
+                  f"w= {w} nsites= 100 E= 0"]
+        lines += [" ".join(f"{x:.6f}" for x in rng.dirichlet([1.0] * 4))
+                  for _ in range(w)]
+        lines.append("")
+    with open(os.path.join(wd, "genome24.meme"), "w") as f:
+        f.write("\n".join(lines))
+    return gdir
+
+
+def _genome_directory_run(wd, gdir):
+    """Phase 17 (b): BASELINE config 4, the 24-graph directory through
+    ``findmotif -d`` on the card and on the CPU: one pass a width, hits
+    from many chromosomes in each motif's report, q-values over the
+    merged hit set, and the cuda TSV and GFF3 byte-identical to cpu's."""
+    import pandas as pd
+
+    reports, launches = {}, None
+    for dev in ("cuda", "cpu"):
+        _reset_launches()
+        out = os.path.join(wd, f"out_genome24_{dev}")
+        text, dt = _findmotif([
+            "findmotif", "-d", gdir, "-b", os.path.join(wd, "genome24.bed"),
+            "-m", os.path.join(wd, "genome24.meme"), "-t", "0.05",
+            "--recomb", "-o", out, "--device", dev])
+        if text.count("Scanned sequences:") != 2:
+            raise RuntimeError("24-graph directory: want one pass a width")
+        if dev == "cuda":
+            launches = _launches()
+            if launches["plain"] or launches["scan_runs_fused"] <= 0:
+                raise RuntimeError(f"24-graph directory: launches "
+                                   f"{launches}")
+        reports[dev] = b""
+        for mid in ("W9", "W13"):
+            df = pd.read_csv(os.path.join(out, f"grafimo_out_{mid}.tsv"),
+                             sep="\t", index_col=0)
+            chroms = {name.split(":")[0] for name in df["sequence_name"]}
+            if (len(chroms) < 12 or not (df["q-value"] <= 1.0).all()
+                    or not (df["q-value"] >= df["p-value"] - 1e-12).all()):
+                raise RuntimeError(f"24-graph directory: {mid} holds "
+                                   f"{len(chroms)} chromosomes, or q < p")
+            for ext in ("tsv", "gff"):
+                with open(os.path.join(out, f"grafimo_out_{mid}.{ext}"),
+                          "rb") as f:
+                    reports[dev] += f.read()
+        log(f"24-graph directory on {dev}: wall {dt:.2f}s")
+    if reports["cuda"] != reports["cpu"]:
+        raise RuntimeError("24-graph directory: cuda and cpu reports differ")
+    log(f"24-graph directory (BASELINE config 4): 2 widths, q-values over "
+        f"the merged hit set, cuda TSV and GFF3 byte-identical to cpu's; "
+        f"launches on cuda {launches}")
+    return launches
+
+
+def phase_many_motifs(torch, wd, gdir):
+    """Phase 17: many motifs -- (a) the 800-PWM ladder on the pocket
+    region, three sampled motifs alone equal to it on both devices; (b)
+    the 24-graph genome directory, cuda == cpu; (c), the fused kernel at
+    the ladder's block shapes, rides phase 15."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    ladder = _ladder_on_pocket(torch, wd, gdir)
+    genome = _genome_directory_run(
+        wd, _genome_directory(wd, np.random.default_rng(SEED + 17)))
+    log(f"phase 17 (many motifs): {time.perf_counter() - t0:.1f}s")
+    return ladder, genome
+
+
 KINDS = ("packed", "gathered", "strided", "patched", "spliced")
 # int32 adds outside the tensor cores: an H100 SM issues 64 a clock against
 # 128 float32 FMAs, so a quarter of the data sheet's 67 TFLOP/s float32
@@ -1941,14 +2202,72 @@ THREE_KERNELS = ("scan_runs_kernel", "exact_hist_kernel",
                  "compact_hits_kernel")
 
 
+# windows times columns of the plain version's score plane a pass: a
+# larger slice block runs it in row ranges (2 GiB of int32 scores)
+PLAIN_PLANE = 1 << 29
+
+
+def _row_range(rows, a, b):
+    """Rows ``a:b`` of a slice block, as its kind gives them."""
+    from grafimo_tpu_torch.ops import score_runs as sr
+
+    t = rows.tensors
+    if rows.source == sr._PACKED:
+        nb = t["nbits"]
+        return sr.packed_rows(t["packed"][a:b],
+                              None if nb is None else nb[a:b])
+    g4, gn = t["genome"], t["ngenome"]
+    if rows.source == sr._STRIDED:
+        return sr.strided_rows(g4, gn, rows.lo + a * rows.stride, b - a,
+                               rows.stride, rows.r)
+    gs = t["gstart"][a:b]
+    if t.get("splice") is not None:
+        return sr.spliced_rows(g4, gn, gs, t["splice"][a:b],
+                               t["patches"][a:b], rows.r)
+    if t.get("patches") is not None:
+        return sr.patched_rows(g4, gn, gs, t["patches"][a:b], rows.r)
+    return sr.resident_rows(g4, gn, gs, rows.r)
+
+
+def _plain_block(torch, rows, vb, lut, mins, k, cuts, comp_size, bases,
+                 capacity):
+    """``scan_block_reference`` over a slice block, in row ranges whose
+    score planes hold at most ``PLAIN_PLANE`` windows times columns:
+    the histogram, the packed hit bits, the hit count and, when there are
+    no more than ``capacity``, every hit's flat index in ascending order
+    (else None)."""
+    from grafimo_tpu_torch.ops import score_runs as sr
+
+    noff, m = rows.r - k + 1, lut.shape[2]
+    step = max(1, PLAIN_PLANE // (noff * m))
+    hist, bits, flat, n = None, [], [], 0
+    for a in range(0, rows.b, step):
+        b = min(rows.b, a + step)
+        count = torch.zeros(1, dtype=torch.int32, device=lut.device)
+        idx = torch.full((capacity,), -1, dtype=torch.int32,
+                         device=lut.device)
+        h, bt = sr.scan_block_reference(
+            _row_range(rows, a, b), None if vb is None else vb[a:b], lut,
+            mins, k, cuts, comp_size, bases, count, idx)
+        hist = h if hist is None else hist + h
+        bits.append(bt)
+        c = int(count)
+        if n + c <= capacity:
+            flat.append(idx[:c] + a * noff * m)
+        n += c
+    return (hist, torch.cat(bits), n,
+            torch.cat(flat) if n <= capacity else None)
+
+
 def _fused_block_case(torch, label, batch, lut, mins, cuts, comp_size,
                       bases):
     """A slice block through ``scan_block`` on the card against its plain
-    version on the same tensors: histogram, count and hit bits exact,
-    indices equal once sorted (past the index capacity, distinct hits);
-    the route the plan gives it launched as the plan says.  Then the
-    timings of that route, of the three launches beside it ("before") and
-    of the plain version, and the bound."""
+    version on the same tensors (in row ranges past ``PLAIN_PLANE``):
+    histogram, count and hit bits exact, indices equal once sorted (past
+    the index capacity, distinct hits); the route the plan gives it
+    launched as the plan says.  Then the timings of that route, of the
+    three launches beside it ("before") and of the plain version, and the
+    bound; a block past ``PLAIN_PLANE`` repeats each fewer times."""
     import numpy as np
 
     import grafimo_tpu_torch.runscan as rb
@@ -1961,16 +2280,14 @@ def _fused_block_case(torch, label, batch, lut, mins, cuts, comp_size,
     noff = rows.r - k + 1
     smallk, topk = rb.SCAN_SMALLK, rb.SCAN_TOPK
     plan = sr.fused_plan(m, k, rows.r, comp_size, kernels.smem_block(0))
+    big = rows.b * noff * m > PLAIN_PLANE
+    reps = (2, 10, 5) if big else (10, 100, 20)  # plain, back to back, device
 
-    def buffers():
-        return (torch.zeros(1, dtype=torch.int32, device="cuda"),
-                torch.full((smallk,), -1, dtype=torch.int32, device="cuda"),
-                torch.full((topk - smallk,), -1, dtype=torch.int32,
-                           device="cuda"))
-
-    got, want = buffers(), buffers()
-    for counts in (sr, hist, compact):
-        counts.reset_counts()
+    got = (torch.zeros(1, dtype=torch.int32, device="cuda"),
+           torch.full((smallk,), -1, dtype=torch.int32, device="cuda"),
+           torch.full((topk - smallk,), -1, dtype=torch.int32,
+                      device="cuda"))
+    _reset_launches()
     h, bits = sr.scan_block(rows, vb, lut, mins, k, cuts, comp_size, bases,
                             *got)
     launched = (dict(sr.COUNTS), hist.COUNTS["kernel"],
@@ -1980,10 +2297,10 @@ def _fused_block_case(torch, label, batch, lut, mins, cuts, comp_size,
                      "plain": 0}, int(not fused), int(not fused)):
         raise RuntimeError(f"scan_block at {label}: launches {launched} on "
                            f"the {plan['route']} route")
-    h_want, bits_want = sr.scan_block_reference(rows, vb, lut, mins, k, cuts,
-                                                comp_size, bases, *want)
+    h_want, bits_want, n_want, idx_want = _plain_block(
+        torch, rows, vb, lut, mins, k, cuts, comp_size, bases, topk)
     torch.cuda.synchronize()
-    n, n_want = int(got[0]), int(want[0])
+    n = int(got[0])
     err = max(abs(n - n_want), int((h.long() - h_want.long()).abs().max()),
               int((bits.int() - bits_want.int()).abs().max()))
     if err or not (torch.equal(h, h_want) and torch.equal(bits, bits_want)):
@@ -1992,8 +2309,7 @@ def _fused_block_case(torch, label, batch, lut, mins, cuts, comp_size,
     kept = min(n, topk)
     idx = torch.cat(got[1:])[:kept]
     if n <= topk:
-        if not torch.equal(torch.sort(idx).values,
-                           torch.cat(want[1:])[:kept]):
+        if not torch.equal(torch.sort(idx).values, idx_want):
             raise RuntimeError(f"scan_block != plain at {label}: indices")
     else:
         flat = torch.from_numpy(np.flatnonzero(
@@ -2012,8 +2328,8 @@ def _fused_block_case(torch, label, batch, lut, mins, cuts, comp_size,
         sr.scan_block(rows, vb, lut, mins, k, cuts, comp_size, bases, *got)
 
     def plain():
-        sr.scan_block_reference(rows, vb, lut, mins, k, cuts, comp_size,
-                                bases, *want)
+        _plain_block(torch, rows, vb, lut, mins, k, cuts, comp_size, bases,
+                     topk)
 
     def three():
         s = sr._launch(rows, k, lut, mins, vb)
@@ -2021,13 +2337,14 @@ def _fused_block_case(torch, label, batch, lut, mins, cuts, comp_size,
         compact.compact_hits(s, cuts, *got)
 
     t = _timings(torch, call, "scan_runs_fused_kernel" if fused
-                 else THREE_KERNELS, plain=plain)
+                 else THREE_KERNELS, plain=plain, reps=reps)
     if not fused:
-        t["device_ms"] = _device_ms(torch, call, THREE_KERNELS,
+        t["device_ms"] = _device_ms(torch, call, THREE_KERNELS, reps=reps[2],
                                     per_call=True)
-    before = {"ms_back_to_back": _back_to_back_ms(torch, three),
+    before = {"ms_back_to_back": _back_to_back_ms(torch, three, reps[1]),
               "device_ms": _device_ms(torch, three, THREE_KERNELS,
-                                      per_call=True)}
+                                      reps=reps[2], per_call=True)}
+    torch.cuda.empty_cache()
     # the work these inputs need: each kept window's pair-table sums
     # (ceil(k / 2) a table word; two columns a word when every window sum
     # fits 16 bits) and one count a valid window and column; the inputs
@@ -2059,6 +2376,7 @@ def _fused_block_case(torch, label, batch, lut, mins, cuts, comp_size,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes=nbytes, adds=adds, hits=n, tier=tier,
                 route=plan["route"], groups=plan["groups"],
+                shape=[rows.b, rows.r, k, m],
                 before_ms_back_to_back=before["ms_back_to_back"],
                 before_device_ms=before["device_ms"])
 
@@ -2156,7 +2474,95 @@ def phase_scan_block_vs_plain(torch, wd):
         torch, "spliced, LUT entries at 1020, M=5",
         _kind_batch(torch, "spliced", genome, 4096, 256, k, rng), lut_r,
         lut_r.min(dim=1).values.sum(dim=0), lut_r.max(dim=1).values.sum(dim=0)))
+    del lut_r
+    cases += _ladder_block_cases(torch, wd, genome, rng)
     torch.cuda.empty_cache()
+    return cases
+
+
+def _ladder_motifs(wd):
+    """``synth_meme``'s ladder (seed 0) as a MEME file in ``wd`` (written
+    once) and its motifs by width."""
+    import numpy as np
+
+    from grafimo_tpu_torch.models.parse import load_motifs
+    from grafimo_tpu_torch.utils import synth
+    from grafimo_tpu_torch.utils.constants import UNIF
+
+    meme = os.path.join(wd, "ladder.meme")
+    if not os.path.exists(meme):
+        synth.synth_meme(meme, LADDER_MOTIFS, np.random.default_rng(SEED))
+    by_width = {}
+    for mo in load_motifs(meme, UNIF, 0.1, False):
+        by_width.setdefault(mo.width, []).append(mo)
+    return meme, by_width
+
+
+def _ladder_kernel(motifs, threshold):
+    """The columns of one ladder width as ``compute_results_runs`` builds
+    them: the PWM kernel of every motif's forward and reverse-complement
+    columns, their minimum scores and p < ``threshold`` cutoffs."""
+    from grafimo_tpu_torch.models.pvalue import PvalueLookup
+    from grafimo_tpu_torch.ops.score_runs import (
+        pwms_to_conv_kernel,
+        reverse_complement_pwm,
+    )
+
+    mats, mins, cuts = [], [], []
+    for mo in motifs:
+        cut = PvalueLookup(mo.pval_table).score_cutoff(threshold)
+        for mat in (mo.score_matrix, reverse_complement_pwm(mo.score_matrix)):
+            mats.append(mat)
+            mins.append(mo.min_score)
+            cuts.append(cut)
+    return pwms_to_conv_kernel(mats), mins, cuts
+
+
+def _ladder_lut(torch, motifs, threshold):
+    """:func:`_ladder_kernel`'s inputs on the card: the LUT, minimum
+    scores, cutoffs and compressed bins (bases and bins a column)."""
+    import numpy as np
+
+    import grafimo_tpu_torch.runscan as rb
+    from grafimo_tpu_torch.ops.score_runs import pwm_lut_from_kernel
+
+    kernel, mins, cuts = _ladder_kernel(motifs, threshold)
+    bases, _, comp = rb.hist_layout(kernel)
+    dev = torch.device("cuda")
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+    return (pwm_lut_from_kernel(kernel, dev), put(mins), put(cuts),
+            put(bases), comp)
+
+
+def _ladder_block_cases(torch, wd, genome, rng):
+    """Phase 15's ladder shapes: ``synth_meme``'s 800 PWMs at the
+    narrowest, the modal and the widest width of the file (every motif of
+    the width, forward and reverse complement), the ladder's p < 1e-6
+    cutoffs, at the rows ``runscan.slice_rows`` gives the fused route:
+    gathered rows of R = 2048 at the narrowest and modal widths, the
+    modal width's patched rows of R = 256, strided rows at the widest."""
+    import grafimo_tpu_torch.runscan as rb
+
+    _, by_width = _ladder_motifs(wd)
+    ks = sorted(by_width)
+    modal = max(ks, key=lambda w: len(by_width[w]))
+    cases = []
+    for kind, k, r in [("gathered", ks[0], 2048), ("gathered", modal, 2048),
+                       ("patched", modal, 256), ("strided", ks[-1], 2048)]:
+        lut, mins, cuts, bases, comp = _ladder_lut(torch, by_width[k],
+                                                   LADDER_T)
+        m = lut.shape[2]
+        b = rb.slice_rows(r, k, m, rb.MAX_BASES_PER_DISPATCH, plane=False)
+        batch = _kind_batch(torch, kind, genome, b, r, k, rng, True,
+                            4 if r <= 256 else 16)
+        cases.append(_fused_block_case(
+            torch, f"{kind}, 800-PWM ladder width {k}, M={m}, p < 1e-6",
+            batch, lut, mins, cuts, comp, bases))
+        del batch, lut
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -2220,6 +2626,7 @@ def main() -> int:
         profile_launches = phase_profile(torch, wd, gdir)
         compact_cases, comp_hist_cases = phase_device_half(torch, wd, gdir)
         three = phase_three_launch_route(torch, wd, gdir, synth)
+        ladder, genome24 = phase_many_motifs(torch, wd, gdir)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     if cases_json:
         with open(cases_json, "w") as f:
@@ -2252,14 +2659,26 @@ def main() -> int:
         "(4, 2) grid functions": grid_launches["scan_runs_fused"],
         "2 processes, both ranks, peak set + one region": rank_launches,
         "--profile, peak set": profile_launches,
+        "run engine, 800-PWM ladder, pocket": ladder["scan_runs_fused"],
+        "run engine, 24-graph directory": genome24["scan_runs_fused"],
     }
-    three_route = {f"{name}, fused route": 0 for name in fused_route}
+    # the fused route's paths check that they launch nothing else; the
+    # ladder and the directory count what they launch
+    counted = {"run engine, 800-PWM ladder, pocket": ladder,
+               "run engine, 24-graph directory": genome24}
+    three_route = {name: {key: counted[name][key] if name in counted
+                          else 0 for key in THREE}
+                   for name in fused_route}
+    def unfused(key):
+        return {f"{name}, fused route": counts[key]
+                for name, counts in three_route.items()}
+
     print(json.dumps({"kernels": [
         _kernel_line("exact_hist", "grafimo_tpu_torch/csrc/hist.cu",
                      "grafimo_tpu/ops/pallas_hist.py:90",
                      three["exact_hist"],
                      [peaked] + hist_cases + comp_hist_cases,
-                     comp_hist_cases[0], dict(three_route, **{
+                     comp_hist_cases[0], dict(unfused("exact_hist"), **{
                          "run engine, 70-wide motif (three launches)":
                              three["exact_hist"],
                          "(4, 2) grid functions": grid_launches["exact_hist"],
@@ -2274,7 +2693,7 @@ def main() -> int:
         _kernel_line("compact_hits", "grafimo_tpu_torch/csrc/compact.cu",
                      "grafimo_tpu/ops/score_runs.py:684",
                      three["compact_hits"], compact_cases, compact_head,
-                     dict(three_route, **{
+                     dict(unfused("compact_hits"), **{
                          "run engine, 70-wide motif (three launches)":
                              three["compact_hits"],
                          "(4, 2) grid functions":
@@ -2282,7 +2701,7 @@ def main() -> int:
                      })),
         _kernel_line("scan_runs", "grafimo_tpu_torch/csrc/scan_runs.cu",
                      "grafimo_tpu/ops/score_runs.py:410", three["scan_runs"],
-                     scan_runs_cases, scan_head, dict(three_route, **{
+                     scan_runs_cases, scan_head, dict(unfused("scan_runs"), **{
                          "run engine, 70-wide motif (three launches)":
                              three["scan_runs"],
                          "(4, 2) grid functions": grid_launches["scan_runs"],

@@ -580,6 +580,11 @@ def _check_rows(rows: BatchRows, k: int, lut, min_scores, vbits) -> None:
            lo=rows.lo, stride=rows.stride, **rows.tensors)
 
 
+# a block's windows times columns stay below this: both kernel entries
+# take an int32 flat hit index
+FLAT_INDEX_LIMIT = 1 << 31
+
+
 def _row_args(rows: BatchRows, k: int, lut, min_scores, vbits) -> list:
     """The row arguments both kernel entries take, through ``m``.  A
     strided span past a plane raises, as the plain version's span decode
@@ -591,7 +596,7 @@ def _row_args(rows: BatchRows, k: int, lut, min_scores, vbits) -> list:
                 _check_span(words, rows.lo, rows.b * rows.stride + rows.r,
                             bits)
     m = lut.shape[2]
-    if rows.b * (rows.r - k + 1) * m >= 1 << 31:
+    if rows.b * (rows.r - k + 1) * m >= FLAT_INDEX_LIMIT:
         raise ValueError(f"scan_runs: {rows.b * (rows.r - k + 1) * m} "
                          f"windows do not fit an int32 flat index")
 

@@ -47,6 +47,7 @@ from grafimo_tpu_torch.graph.runs import (
     reconstruct_hits_batch,
     region_runs,
 )
+from grafimo_tpu_torch import kernels
 from grafimo_tpu_torch.graph.sitegraph import SiteGraph
 from grafimo_tpu_torch.models.motif import Motif
 from grafimo_tpu_torch.models.pvalue import PvalueLookup
@@ -55,7 +56,9 @@ from grafimo_tpu_torch.ops.qvalue import qvalues_from_histogram
 from grafimo_tpu_torch.device import split_rows
 from grafimo_tpu_torch.parallel import cluster
 from grafimo_tpu_torch.ops.score_runs import (
+    FLAT_INDEX_LIMIT,
     bytes_to_words,
+    fused_plan,
     genome_planes_to_device,
     hist_size_for_width,
     pack_bits,
@@ -87,7 +90,7 @@ SHORT_PATCH_R = 256  # buckets at or below use the narrow descriptor
 MIN_PATCH_R = 64
 
 # device-batch size cap: rows are sliced so rows*R stays under this many
-# bases per dispatch (shrunk by max(1, M // 4) for wide motif stacks).
+# bases per dispatch (see slice_rows for what else bounds a slice).
 # The port states it per device in place of the reference's
 # jax-backend probe (runscan.py:76-102); both stay monkeypatchable for
 # the slicing-invariance tests.
@@ -99,11 +102,13 @@ MAX_BASES_PER_DISPATCH_CPU = 1 << 19
 # reads the rest of its indices, a denser one its packed hit bits
 SCAN_TOPK = 1 << 13
 SCAN_SMALLK = 1 << 10
-# slice blocks per device between two flush reads.  It bounds the hit
-# bits each device keeps until the read: a block's bits are rows * Noff *
-# M / 8 bytes, 4.2 MB for the main path's (8192, 2030, 2) blocks and at
-# most ~8.4 MB at any M (slices shrink by M // 4), so at most ~1.1 GB.
+# slices between two flush reads: at most SCAN_FLUSH_SLICES (the flush
+# block's rows), and fewer once the hit bits the scan keeps until the
+# read would pass SCAN_FLUSH_BYTES.  A block's bits are rows *
+# ceil(Noff / 8) * M bytes: 4.2 MB for the main path's (8192, 2030, 2)
+# blocks, at most 2^28 under FLAT_INDEX_LIMIT.
 SCAN_FLUSH_SLICES = 128
+SCAN_FLUSH_BYTES = 1 << 30
 
 # device->host reads of the scan since the last reset_reads(): "flush",
 # one per device and flush block (hit counts and first indices);
@@ -121,6 +126,80 @@ def _dispatch_cap(device: torch.device) -> int:
     if device.type == "cpu":
         return min(MAX_BASES_PER_DISPATCH, MAX_BASES_PER_DISPATCH_CPU)
     return MAX_BASES_PER_DISPATCH
+
+
+def slice_rows(r: int, k: int, m: int, cap: int, plane: bool) -> int:
+    """Rows of one device's block of a slice: rows of ``r`` positions,
+    ``k``-wide windows, ``m`` columns, ``cap`` bases a block.
+
+    A route that writes the ``(rows, Noff, m)`` int32 score plane (the
+    plain version on the CPU, the three launches on a card: ``plane``)
+    shrinks the block by ``m // 4``, which holds the plane near 256 MB
+    at any ``m``.  The fused kernel writes no plane: its block is bounded
+    by ``cap`` and by the flat hit index (``FLAT_INDEX_LIMIT``) alone,
+    and the hit bits it keeps by the flush (``SCAN_FLUSH_BYTES``)."""
+    if plane:
+        return max(1, (cap // max(1, m // 4)) // r)
+    return max(1, min(cap // r, (FLAT_INDEX_LIMIT - 1) // ((r - k + 1) * m)))
+
+
+def _writes_plane(dev: torch.device, m: int, k: int, r: int,
+                  comp_size: int) -> bool:
+    """Whether ``scan_block`` on ``dev`` writes the block's score plane."""
+    if dev.type != "cuda":
+        return True
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    plan = fused_plan(m, k, r, comp_size, kernels.smem_block(index))
+    return plan["route"] != "fused"
+
+
+def hist_layout(pwm_kernel: np.ndarray):
+    """Each column's reachable window scores ``[bases, tops]`` (the sums
+    of its PWM positions' minima and maxima, int64) and ``comp_size``,
+    the compressed device bins a column: one for the N-window value, one
+    a reachable score (reference ``runscan.py:1272-1349``)."""
+    pwm_np = np.asarray(pwm_kernel)
+    bases = pwm_np.min(axis=1).sum(axis=0).astype(np.int64)
+    tops = pwm_np.max(axis=1).sum(axis=0).astype(np.int64)
+    return bases, tops, int((tops - bases).max()) + 2
+
+
+def plan_slices(batches, k: int, m: int, comp_size: int, devices):
+    """The slices :func:`scan_batches` cuts ``batches`` into on
+    ``devices``: ``[batch index, lo, hi, flush]`` rows, ``flush`` when
+    the flush read follows the slice.
+
+    A slice takes the same rows for every device, the fewest any of them
+    takes by :func:`slice_rows` on the route it scans the batch on, so
+    every device list and every rank given the same batches slices them
+    alike.  A flush read follows every ``SCAN_FLUSH_SLICES`` slices, the
+    last slice, and any slice after which the next one's hit bits would
+    take those kept past ``SCAN_FLUSH_BYTES``."""
+    devs = _as_devices(devices)
+    plan = []
+    kept = since = 0
+    for bi, batch in enumerate(batches):
+        n_rows = (batch.gstart if batch.gstart is not None
+                  else batch.packed).shape[0]
+        rows_per = min(
+            slice_rows(batch.R, k, m, _dispatch_cap(dev),
+                       _writes_plane(dev, m, k, batch.R, comp_size))
+            for dev in devs) * len(devs)
+        bits_row = (batch.R - k + 8) // 8 * m
+        for lo in range(0, n_rows, rows_per):
+            hi = min(lo + rows_per, n_rows)
+            if since and kept + (hi - lo) * bits_row > SCAN_FLUSH_BYTES:
+                plan[-1][3] = True
+                kept = since = 0
+            plan.append([bi, lo, hi, False])
+            kept += (hi - lo) * bits_row
+            since += 1
+            if since == SCAN_FLUSH_SLICES:
+                plan[-1][3] = True
+                kept = since = 0
+    if plan:
+        plan[-1][3] = True
+    return plan
 
 
 _SEQ_LUT = np.full(256, 0, dtype=np.uint8)
@@ -958,8 +1037,10 @@ def scan_batches(
     (reference ``runscan.scan_batches :1195`` with its mesh dispatch,
     ``_make_shard_kernels :1023``).
 
-    Batches are sliced so ``rows * R`` stays under each device's dispatch
-    cap, and each slice's rows split into contiguous blocks, one per
+    Batches are sliced by :func:`slice_rows` (``rows * R`` under each
+    device's dispatch cap, and the route's bound on the score plane or
+    the flat hit index), and each slice's rows split into contiguous
+    blocks, one per
     device (:func:`~grafimo_tpu_torch.device.split_rows`; the
     sizes may differ by one, so nothing is padded).  Every block runs the
     batch's kind of ``ops/score_runs.py`` as the reference routes it
@@ -970,7 +1051,8 @@ def scan_batches(
     (the fused CUDA kernel on a card): its compressed histogram goes into
     the device's int64 one, read back once at the end, expanded and summed
     on the host; its hits are compacted on the device and nothing is read
-    per slice: every ``SCAN_FLUSH_SLICES`` slices, and once at the
+    per slice: every ``SCAN_FLUSH_SLICES`` slices, sooner when the kept
+    hit bits would pass ``SCAN_FLUSH_BYTES``, and once at the
     end, the host reads each device's flush block in one copy, then each
     block's hits by its tier (``SCAN_SMALLK``, ``SCAN_TOPK``; reference
     ``:1427-1469, 1686-1710``).  Hit rows map back through ``lo +
@@ -986,11 +1068,8 @@ def scan_batches(
     # value min_scores[c].  Device bin 0 holds the N value and bin 1 + i
     # the score base_c + i (ops/hist.remap, applied by hist.cu on load);
     # _absorb_comp expands them.  PWM entries are integers, exact in f32.
-    pwm_np = np.asarray(pwm_kernel)
-    hist_bases = pwm_np.min(axis=1).sum(axis=0).astype(np.int64)
-    hist_tops = pwm_np.max(axis=1).sum(axis=0).astype(np.int64)
+    hist_bases, hist_tops, comp_size = hist_layout(pwm_kernel)
     hist_spans = hist_tops - hist_bases + 1
-    comp_size = int(hist_spans.max()) + 1
     repeats: Dict[str, int] = {}
     for dev in devs:
         repeats[str(dev)] = repeats.get(str(dev), 0) + 1
@@ -1079,20 +1158,8 @@ def scan_batches(
         for o in on.values():
             o.used = 0
 
-    # rows per device and slice under the smallest device cap; a slice
-    # takes that many rows for every device
-    cap = min(_dispatch_cap(dev) for dev in devs)
-    rows_of = [
-        b.gstart.shape[0] if b.gstart is not None else b.packed.shape[0]
-        for b in batches
-    ]
-
-    def _slice_rows(batch):
-        return max(1, (cap // max(1, m // 4)) // batch.R) * len(devs)
-
-    total_slices = sum(
-        -(-n // _slice_rows(b)) for b, n in zip(batches, rows_of)
-    )
+    plan = plan_slices(batches, k, m, comp_size, devs)
+    total_slices = len(plan)
     slices_done = 0
     last_progress = t0
 
@@ -1113,50 +1180,47 @@ def scan_batches(
             f"({100 * frac:.0f}%), {elapsed:.1f}s, ETA {eta}{end}"
         )
 
-    for batch, n_rows in zip(batches, rows_of):
-        rows_per = _slice_rows(batch)
+    for bi, lo, hi, flush in plan:
+        batch = batches[bi]
         noff_b = batch.R - k + 1
         stride = noff_b
         # expected vbits bytes for an all-valid row (tail bits zero)
         full_row = np.full((noff_b + 7) // 8, 0xFF, dtype=np.uint8)
         if noff_b % 8:
             full_row[-1] = (1 << (noff_b % 8)) - 1
-        for lo in range(0, n_rows, rows_per):
-            hi = min(lo + rows_per, n_rows)
-            # uniformly strided backbone slices take the span decode
-            # (reference runscan.py:1587-1595), every block of them
-            gs = batch.gstart[lo:hi] if batch.gstart is not None else None
-            strided = (
-                gs is not None
-                and batch.patches is None
-                and len(gs) > 1
-                and 2 * stride >= batch.R
-                and bool((np.diff(gs) == stride).all())
-            )
-            for dev, (b0, b1) in zip(devs, split_rows(hi - lo, len(devs))):
-                if b0 == b1:
-                    continue
-                rows = slice(lo + b0, lo + b1)
-                # clean blocks skip the mask upload and the masking
-                vb = batch.vbits[rows]
-                vb = None if (vb == full_row).all() else _put(vb, dev)
-                o = on[str(dev)]
-                slot = o.block[o.used]
-                more = torch.empty(max(0, topk - smallk), dtype=torch.int32,
-                                   device=dev)
-                hist, bits = scan_block(
-                    _block_rows(batch, rows, strided, dev, k), vb, o.lut,
-                    o.mins, k, o.cuts, comp_size, o.bases, slot[:1],
-                    slot[1:], more)
-                o.acc += hist
-                pending.append(_Pending(batch, rows.start, o, o.used, more,
-                                        bits))
-                o.used += 1
-            slices_done += 1
-            if slices_done % flush_slices == 0:
-                _flush()
-            _progress()
-    _flush()
+        # uniformly strided backbone slices take the span decode
+        # (reference runscan.py:1587-1595), every block of them
+        gs = batch.gstart[lo:hi] if batch.gstart is not None else None
+        strided = (
+            gs is not None
+            and batch.patches is None
+            and len(gs) > 1
+            and 2 * stride >= batch.R
+            and bool((np.diff(gs) == stride).all())
+        )
+        for dev, (b0, b1) in zip(devs, split_rows(hi - lo, len(devs))):
+            if b0 == b1:
+                continue
+            rows = slice(lo + b0, lo + b1)
+            # clean blocks skip the mask upload and the masking
+            vb = batch.vbits[rows]
+            vb = None if (vb == full_row).all() else _put(vb, dev)
+            o = on[str(dev)]
+            slot = o.block[o.used]
+            more = torch.empty(max(0, topk - smallk), dtype=torch.int32,
+                               device=dev)
+            hist, bits = scan_block(
+                _block_rows(batch, rows, strided, dev, k), vb, o.lut,
+                o.mins, k, o.cuts, comp_size, o.bases, slot[:1],
+                slot[1:], more)
+            o.acc += hist
+            pending.append(_Pending(batch, rows.start, o, o.used, more,
+                                    bits))
+            o.used += 1
+        slices_done += 1
+        if flush:
+            _flush()
+        _progress()
     _absorb_comp(sum(o.acc.cpu().numpy() for o in on.values()))
     READS["hist"] += len(on)
     if progress and sys.stderr.isatty():

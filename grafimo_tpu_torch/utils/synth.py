@@ -8,11 +8,19 @@ reference package.  The profile: variant density 1/30 bp, 12% indels
 phased diploid samples, and MHC-like dense pockets at 5x density.
 ``tests/test_torch_isolation.py`` holds the files these write byte for
 byte against the tool's.
+
+The many-motif inputs are copied from ``tools/bench_jaspar_ladder.py``
+(``WIDTH_PMF`` and ``synth_meme``, ``:35-78``; the pangenome of its
+``main``, ``:124-144``): 800-odd PWMs drawn from JASPAR CORE
+vertebrates' width histogram, over a random chromosome with one SNP
+every 30 bp, each alt on 1 haplotype in 7.
+``tests/test_torch_scale_configs.py`` holds them to the tool.
 """
 
 import numpy as np
 
 from grafimo_tpu_torch.graph.vgproto import _bgzf_block
+from grafimo_tpu_torch.io.vcf import VcfRecord
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
 
@@ -128,3 +136,76 @@ def write_vcf(path, chrom, seq, variants, H):
         w.write(head)
         w.write(row.tobytes())
     w.close()
+
+
+# JASPAR CORE vertebrates width histogram (approximate, JASPAR 2020
+# non-redundant vertebrates, 746 profiles): P(width)
+WIDTH_PMF = {
+    6: 0.02, 7: 0.03, 8: 0.07, 9: 0.07, 10: 0.12, 11: 0.14, 12: 0.11,
+    13: 0.08, 14: 0.08, 15: 0.09, 16: 0.05, 17: 0.04, 18: 0.03,
+    19: 0.02, 20: 0.015, 21: 0.015, 22: 0.01, 23: 0.008, 24: 0.007,
+    25: 0.005, 26: 0.004, 28: 0.003, 30: 0.003,
+}
+
+
+def synth_meme(path: str, n_motifs: int, rng) -> dict:
+    """Write ``n_motifs`` synthetic PWMs as one MEME file; returns the
+    width histogram."""
+    widths = list(WIDTH_PMF)
+    probs = np.array([WIDTH_PMF[w] for w in widths])
+    probs = probs / probs.sum()
+    lines = [
+        "MEME version 4", "",
+        "ALPHABET= ACGT", "",
+        "strands: + -", "",
+        "Background letter frequencies (from uniform background):",
+        "A 0.25000 C 0.25000 G 0.25000 T 0.25000", "",
+    ]
+    histo = {}
+    for i in range(n_motifs):
+        k = int(rng.choice(widths, p=probs))
+        histo[k] = histo.get(k, 0) + 1
+        nsites = int(rng.integers(20, 5000))
+        lines.append(f"MOTIF M{i:04d} TF{i:04d}")
+        lines.append(
+            "letter-probability matrix: alength= 4 w= "
+            f"{k} nsites= {nsites} E= 0"
+        )
+        # realistic IC profile: strong core, fuzzy flanks
+        for j in range(k):
+            edge = min(j, k - 1 - j) / max(1, (k - 1) / 2)
+            conc = 0.15 + 2.5 * edge  # low conc = peaky column
+            p = rng.dirichlet([conc] * 4)
+            p = np.maximum(p, 1e-4)
+            p = p / p.sum()
+            lines.append(" ".join(f"{x:.6f}" for x in p))
+        lines.append("")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines))
+    return histo
+
+
+def ladder_pangenome(rng, L: int, H: int, chrom: str = "c"):
+    """The ladder's chromosome: ``L`` random bases (a string) and its SNP
+    records, one every 30 bp on average, each alt carried by about one
+    haplotype in 7 of ``H`` (``gt`` rows of int32 allele indices)."""
+    seq = rng.integers(0, 4, L).astype(np.uint8).tobytes().translate(
+        bytes.maketrans(bytes(range(4)), b"ACGT")
+    ).decode()
+    positions = np.sort(
+        rng.choice(np.arange(1, L - 10), L // 30, replace=False)
+    )
+    keep = np.ones(len(positions), bool)
+    keep[1:] = np.diff(positions) > 0
+    positions = positions[keep]
+    gt_all = (rng.integers(0, 7, (len(positions), H)) == 0).astype(
+        np.int32
+    )
+    records = [
+        VcfRecord(
+            chrom, int(p) + 1, seq[p],
+            ["ACGT"[("ACGT".index(seq[p]) + 1) % 4]], gt_all[i],
+        )
+        for i, p in enumerate(positions)
+    ]
+    return seq, records
