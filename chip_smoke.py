@@ -107,14 +107,19 @@ raises and the script exits non-zero:
     CPU, each report's rows byte-identical to the ladder's; then 24
     small per-chromosome graphs (BASELINE config 4) through ``findmotif
     -d`` with two widths, the cuda TSV and GFF3 byte-identical to the
-    cpu ones.
+    cpu ones;
+18. the reference's headline workload shape (BASELINE config 1): CTCF
+    over ``tools/bench_chrom_scale.py``'s ENCODE-shaped BED, 3,000
+    peaks of 270 bp from seed 7, on phase 5's graph through
+    ``findmotif``, on the card (one fused launch a slice block and
+    nothing else) and on the CPU, TSV and GFF3 byte-identical.
 
 Phase 5's whole-chromosome run and phase 9's scans also check the
 device->host reads (``runscan.READS``): one per device and flush block of
 slices, one per block denser than the flush read's index tier, and one
 histogram read per device, never one per slice.  Phases 4, 5, 8, 9, 10,
-11 and 12 check the launches: one fused ``scan_runs.cu`` launch a slice
-block on the run engine's paths, no unfused scoring, no ``hist.cu`` or
+11, 12 and 18 check the launches: one fused ``scan_runs.cu`` launch a
+slice block on the run engine's paths, no unfused scoring, no ``hist.cu`` or
 ``compact.cu`` launch and no plain version there (``hist.cu`` and
 ``compact.cu`` are held in phases 3, 7 and 13, and beside each case of
 phase 15); phase 17 counts every route's launches and wants the fused
@@ -679,6 +684,7 @@ def phase_main_path(torch, wd):
     hist.reset_counts()
     compact.reset_counts()
     rb.reset_reads()
+    torch.cuda.reset_peak_memory_stats()
     text, wall = _findmotif([
         "findmotif", "-d", gdir, "-b", whole, "-m", MOTIF, "-t", "1e-4",
         "-o", os.path.join(wd, "out_whole"), "--verbose", "--device", "cuda",
@@ -703,7 +709,7 @@ def phase_main_path(torch, wd):
     log(f"whole-chromosome findmotif on cuda: {windows} windows/strand, "
         f"{n_hits} hits (p < 1e-4), scan {scan_s:.2f}s, wall {wall:.2f}s, "
         f"{windows / scan_s:.0f} windows/strand/s, peak RSS {rss_gb:.2f} GB "
-        f"(whole smoke process), peak device memory "
+        f"(whole smoke process), peak device memory of the run "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"fused scan_runs.cu launches {scans['fused']} (unfused "
         f"{scans['kernel']}, plain {scans['plain']}); hist.cu launches "
@@ -1923,6 +1929,41 @@ def phase_many_motifs(torch, wd, gdir):
     return ladder, genome
 
 
+# BASELINE config 1's shape: tools/bench_chrom_scale.py's ENCODE-shaped
+# BED, CTCF over 3,000 peaks of 270 bp drawn from seed 7
+# (utils/synth.encode_like_bed)
+ENCODE_PEAKS = 3000
+
+
+def phase_encode_peaks(torch, wd, gdir, synth):
+    """Phase 18: the JAX tool's ENCODE-shaped BED over phase 5's graph
+    through ``findmotif`` on the card, one fused launch a slice block and
+    nothing else, then on the CPU: TSV and GFF3 byte-identical."""
+    from grafimo_tpu_torch.utils.synth import encode_like_bed
+
+    t0 = time.perf_counter()
+    bed = os.path.join(wd, "encode_like.bed")
+    encode_like_bed(bed, synth["length"], ENCODE_PEAKS)
+    launches, walls = None, {}
+    for dev in ("cuda", "cpu"):
+        _reset_launches()
+        _, walls[dev] = _findmotif([
+            "findmotif", "-d", gdir, "-b", bed, "-m", MOTIF, "-t", "1e-4",
+            "-o", os.path.join(wd, f"out_encode_{dev}"), "--verbose",
+            "--device", dev])
+        if dev == "cuda":
+            launches = _one_fused_launch_a_block("ENCODE-shaped peak set")
+    _same_report(os.path.join(wd, "out_encode_cuda"),
+                 os.path.join(wd, "out_encode_cpu"), "ENCODE-shaped peak set")
+    _, n_hits = _report(os.path.join(wd, "out_encode_cuda"))
+    log(f"ENCODE-shaped peak set ({ENCODE_PEAKS} x 270 bp, seed 7): "
+        f"{n_hits} hits, wall cuda {walls['cuda']:.2f}s, cpu "
+        f"{walls['cpu']:.2f}s, fused scan_runs.cu launches {launches}; cuda "
+        f"TSV and GFF3 byte-identical to cpu's")
+    log(f"phase 18 (ENCODE-shaped peak set): {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 KINDS = ("packed", "gathered", "strided", "patched", "spliced")
 # int32 adds outside the tensor cores: an H100 SM issues 64 a clock against
 # 128 float32 FMAs, so a quarter of the data sheet's 67 TFLOP/s float32
@@ -2627,6 +2668,7 @@ def main() -> int:
         compact_cases, comp_hist_cases = phase_device_half(torch, wd, gdir)
         three = phase_three_launch_route(torch, wd, gdir, synth)
         ladder, genome24 = phase_many_motifs(torch, wd, gdir)
+        encode_launches = phase_encode_peaks(torch, wd, gdir, synth)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     if cases_json:
         with open(cases_json, "w") as f:
@@ -2661,6 +2703,7 @@ def main() -> int:
         "--profile, peak set": profile_launches,
         "run engine, 800-PWM ladder, pocket": ladder["scan_runs_fused"],
         "run engine, 24-graph directory": genome24["scan_runs_fused"],
+        "run engine, ENCODE-shaped 3,000 x 270 bp peaks": encode_launches,
     }
     # the fused route's paths check that they launch nothing else; the
     # ladder and the directory count what they launch

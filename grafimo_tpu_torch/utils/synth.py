@@ -6,6 +6,7 @@ they share), over the port's own ``_bgzf_block``: the tool imports the
 reference package.  The profile: variant density 1/30 bp, 12% indels
 (geometric lengths, 55/45 del/ins), rare-skewed allele frequencies,
 phased diploid samples, and MHC-like dense pockets at 5x density.
+``encode_like_bed`` is the same tool's ENCODE-shaped peak set.
 ``tests/test_torch_isolation.py`` holds the files these write byte for
 byte against the tool's.
 
@@ -90,6 +91,17 @@ def write_fasta(path, name, seq):
         txt = BASES[seq].tobytes()
         for i in range(0, len(txt), 60):
             f.write(txt[i : i + 60] + b"\n")
+
+
+def encode_like_bed(path, L, n, chrom="21"):
+    """``n`` 270 bp regions of an ``L``-base chromosome ``chrom`` drawn
+    from seed 7 and sorted, as ``tools/bench_chrom_scale.py:297-303``
+    writes its ``encode_like.bed`` (the reference's headline workload's
+    shape: CTCF over the top ENCODE peaks)."""
+    starts = np.sort(np.random.default_rng(7).integers(0, L - 300, n))
+    with open(path, "w") as f:
+        for s0 in starts.tolist():
+            f.write(f"chr{chrom}\t{s0}\t{s0 + 270}\n")
 
 
 class BgzfWriter:

@@ -39,21 +39,63 @@ FLOWS.update({
     f"windows_{name}": (src, [*rest, "--engine", "windows"])
     for name, (src, rest) in list(FLOWS.items())
 })
+# flows a CLI differential found unheld by the ones above: the
+# tutorial's data with its background file on both engines, its
+# chromosome filter and name maps, a pseudocount, TRANSFAC and PFM motifs with -q -r, and the vg-built
+# inputs of tests/data/input (a source "-g:FILE" or "-d:DIR" is scanned
+# as it is, with nothing built)
+TUTORIAL = REPO / "tutorials" / "data"
+NAMEMAP = str(TUTORIAL / "namemap.txt")
+TUTORIAL_FLOW = ["-b", str(TUTORIAL / "regions.bed"),
+                 "-m", str(TUTORIAL / "example.meme"),
+                 "-k", str(TUTORIAL / "bg_nt"), "-t", "0.01"]
+FLOWS.update({
+    "tutorial_bgfile": ("-d", TUTORIAL_FLOW),
+    "windows_tutorial_bgfile": ("-d", [*TUTORIAL_FLOW, "--engine", "windows"]),
+    "tutorial_chroms_find": ("-d", [*TUTORIAL_FLOW, "--chroms-find", "y"]),
+    "tutorial_namemaps": ("-d", [*TUTORIAL_FLOW, "--chroms-namemap-find",
+                                 NAMEMAP]),
+    "pseudocount": ("-d", ["-m", "MA0139.1.meme", "-t", "1", "--recomb",
+                           "-p", "0.5"]),
+    "transfac_noqvalue_noreverse": (
+        "-d", ["-m", "MA0139.1.transfac", "-t", "1", "--recomb", "-q", "-r"]),
+    "pfm_noqvalue_noreverse": (
+        "-d", ["-m", "MA0139.1.pfm", "-t", "1", "--recomb", "-q", "-r"]),
+    "xg_file": ("-g:x_toy.xg", ["-m", "MA0139.1.meme", "-t", "1",
+                                "--recomb"]),
+    "vg_file": ("-g:x_toy.vg", ["-m", "MA0139.1.meme", "-t", "1",
+                                "--recomb"]),
+    "xg_directory": ("-d:mygenome_xg", TUTORIAL_FLOW),
+})
+BUILD_OPTIONS = {"tutorial_namemaps": ["--chroms-namemap-build", NAMEMAP]}
 
 
-def _build(main, input_dir, outdir):
+def _build(main, input_dir, outdir, flow=None):
+    """``buildvg`` of the toy data, or of the tutorial's for a flow that
+    scans it, with the flow's buildvg options."""
+    rest = FLOWS[flow][1] if flow else []
+    data = TUTORIAL if any(str(TUTORIAL) in a for a in rest) else None
+    fasta, vcf = ((data / "xy.fa", data / "xy2.vcf.gz") if data else
+                  (input_dir / "test.fa", input_dir / "test.vcf.gz"))
     assert main([
-        "buildvg", "-l", str(input_dir / "test.fa"),
-        "-v", str(input_dir / "test.vcf.gz"), "-o", str(outdir),
+        "buildvg", "-l", str(fasta), "-v", str(vcf), "-o", str(outdir),
+        *BUILD_OPTIONS.get(flow, []),
     ]) == 0
     return outdir
 
 
 def _findmotif_args(input_dir, graph_dir, bed, flow, outdir):
     src, rest = FLOWS[flow]
-    graph = str(graph_dir / "x.gvt.npz") if src == "-g" else str(graph_dir)
+    if ":" in src:  # a vg-built input, scanned as it is
+        src, name = src.split(":")
+        graph = str(input_dir / name)
+    else:
+        graph = str(graph_dir / "x.gvt.npz") if src == "-g" else str(
+            graph_dir)
+    if "-b" not in rest:
+        rest = ["-b", str(bed), *rest]
     rest = [str(input_dir / a) if a.startswith("MA0139") else a for a in rest]
-    return ["findmotif", src, graph, "-b", str(bed), *rest, "-o", str(outdir)]
+    return ["findmotif", src, graph, *rest, "-o", str(outdir)]
 
 
 @pytest.fixture()
@@ -67,8 +109,8 @@ def toy_bed(tmp_path):
 def test_reports_byte_identical(input_dir, tmp_path, toy_bed, flow,
                                 monkeypatch):
     monkeypatch.setenv("GRAFIMO_TPU_SINGLE_DEVICE", "1")
-    g_port = _build(port_main, input_dir, tmp_path / "g_port")
-    g_ref = _build(ref_main, input_dir, tmp_path / "g_ref")
+    g_port = _build(port_main, input_dir, tmp_path / "g_port", flow)
+    g_ref = _build(ref_main, input_dir, tmp_path / "g_ref", flow)
     assert port_main([
         *_findmotif_args(input_dir, g_port, toy_bed, flow, tmp_path / "port"),
         "--device", "cpu",

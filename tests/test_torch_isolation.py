@@ -78,12 +78,14 @@ def _forbidden(name: str) -> bool:
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(REPO)) for p in PORT_DIR.rglob("*.py"))
-    + ["chip_smoke.py"],
+    + ["chip_smoke.py", "tools/bench_torch_chrom_scale.py",
+       "tools/check_strided_tail.py"],
 )
 def test_no_reference_or_jax_import(path):
     """An AST walk finds no import of ``grafimo_tpu`` or ``jax``,
-    module-level or inside a function; in ``chip_smoke.py`` the programs
-    it hands to its subprocesses are held to the same."""
+    module-level or inside a function; in ``chip_smoke.py`` and the
+    chromosome-scale tool the programs they hand to their subprocesses
+    are held to the same."""
     text = (REPO / path).read_text()
     tree = ast.parse(text, filename=path)
     bad = [n for n in _imported_names(tree) if _forbidden(n)]
