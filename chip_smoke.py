@@ -112,7 +112,11 @@ raises and the script exits non-zero:
     over ``tools/bench_chrom_scale.py``'s ENCODE-shaped BED, 3,000
     peaks of 270 bp from seed 7, on phase 5's graph through
     ``findmotif``, on the card (one fused launch a slice block and
-    nothing else) and on the CPU, TSV and GFF3 byte-identical.
+    nothing else) and on the CPU, TSV and GFF3 byte-identical; then the
+    same regions scanned on the card in this process and their hits
+    assembled twice, by ``runscan._assemble_columns`` and on the route
+    it replaced (``_route_columns``), the report columns equal and both
+    times printed.
 
 Phase 5's whole-chromosome run and phase 9's scans also check the
 device->host reads (``runscan.READS``): one per device and flush block of
@@ -1929,16 +1933,96 @@ def phase_many_motifs(torch, wd, gdir):
     return ladder, genome
 
 
+# what hit assembly caches on a graph: the pinned memos of graph/runs.py
+# and the per-graph arrays of grafimo_tpu_torch/assemble.py
+GRAPH_CACHES = ("_cluster_cache", "_dense_delpref_cache", "_ref_node_arr",
+                "_site_deletable_arr", "_cluster_spans")
+
+
+def _route_columns(rs, res, by_key, motifs, col_meta, k, pinned):
+    """The report columns of ``res``'s hits from
+    ``runscan._assemble_columns``, on its own route or, with ``pinned``,
+    on the route it replaced: every hit's run rebuilt by the pinned
+    ``build_single_run`` (clusters by ``cluster_sites``, the backbone by
+    ``_build_backbone_run``) and read by ``reconstruct_hits_batch``.  The
+    graphs' caches and the regions' run caches are dropped first, so
+    each route pays for its own.  Returns ``(columns, seconds)``."""
+    from grafimo_tpu_torch.graph.runs import (
+        build_single_run,
+        reconstruct_hits_batch,
+    )
+
+    def pinned_fields(rr, ref, offs, k):
+        run = rr._run_cache.get(ref)
+        if run is None:
+            run = rr._run_cache[ref] = build_single_run(
+                rr.graph, rr.start, rr.stop, k, ref)
+        return reconstruct_hits_batch(rr.graph, run, offs, k)
+
+    saved = {key: dict(rr._run_cache) for key, rr in by_key.items()}
+    for rr in by_key.values():
+        for name in GRAPH_CACHES:
+            rr.graph.__dict__.pop(name, None)
+    real = rs._hit_fields
+    if pinned:
+        rs._hit_fields = pinned_fields
+    try:
+        t0 = time.perf_counter()
+        cols = rs._assemble_columns(res, motifs, by_key, col_meta, k)
+        return cols, time.perf_counter() - t0
+    finally:
+        rs._hit_fields = real
+        for key, rr in by_key.items():
+            rr._run_cache = saved[key]
+
+
 # BASELINE config 1's shape: tools/bench_chrom_scale.py's ENCODE-shaped
 # BED, CTCF over 3,000 peaks of 270 bp drawn from seed 7
 # (utils/synth.encode_like_bed)
 ENCODE_PEAKS = 3000
 
 
-def phase_encode_peaks(torch, wd, gdir, synth):
+def _encode_assembly(torch, gdir, bed, card):
+    """Phase 18's regions scanned on ``cuda:0`` in this process, their
+    hits assembled on both routes: the report columns must be equal."""
+    from grafimo_tpu_torch import runscan as rs
+    from grafimo_tpu_torch.io.bed import read_bed_regions
+    from grafimo_tpu_torch.models.parse import load_motifs
+    from grafimo_tpu_torch.utils.constants import UNIF
+    from grafimo_tpu_torch.workflows import load_graph_file
+
+    graph = load_graph_file(os.path.join(gdir, "21.gvt.npz"))
+    regions, _ = read_bed_regions(bed)
+    kernel, mins, cuts, k, hist_size = _ctcf_scan_inputs()
+    rrs = rs.build_region_runs(graph, "21", regions["chr21"], k)
+    res = rs.scan_batches(rs.batch_runs(rrs, k), kernel, mins, cuts, k,
+                          hist_size, torch.device("cuda", 0))
+    res.hits.sort()
+    kinds = {"backbone": 0, "cluster": 0, "dense": 0, "fallback": 0}
+    for (_key, (c_idx, _x)), _off, _col in res.hits:
+        kinds["backbone" if c_idx == -1 else "cluster" if c_idx >= 0
+              else "fallback" if c_idx == -2 else "dense"] += 1
+    by_key = {rr.key: rr for rr in rrs}
+    motifs = load_motifs(MOTIF, UNIF, 0.1, False)
+    col_meta = [(0, "+"), (0, "-")]
+    new, t_new = _route_columns(rs, res, by_key, motifs, col_meta, k, False)
+    old, t_old = _route_columns(rs, res, by_key, motifs, col_meta, k, True)
+    if new != old:
+        raise RuntimeError("ENCODE-shaped peak set: hit assembly differs "
+                           "between the pinned route and the new one")
+    if not res.hits or not kinds["backbone"]:
+        raise RuntimeError(f"ENCODE-shaped peak set: hits {kinds}; want "
+                           f"backbone hits among them")
+    log(f"ENCODE-shaped peak set, hit assembly of {len(res.hits)} raw hits "
+        f"{kinds}: new route {t_new:.3f}s, pinned route {t_old:.3f}s "
+        f"({t_old / max(t_new, 1e-9):.1f}x), columns equal ({card})")
+
+
+def phase_encode_peaks(torch, wd, gdir, synth, card):
     """Phase 18: the JAX tool's ENCODE-shaped BED over phase 5's graph
     through ``findmotif`` on the card, one fused launch a slice block and
-    nothing else, then on the CPU: TSV and GFF3 byte-identical."""
+    nothing else, then on the CPU: TSV and GFF3 byte-identical; then its
+    hit assembly on both routes (``_encode_assembly``)."""
     from grafimo_tpu_torch.utils.synth import encode_like_bed
 
     t0 = time.perf_counter()
@@ -1960,6 +2044,7 @@ def phase_encode_peaks(torch, wd, gdir, synth):
         f"{n_hits} hits, wall cuda {walls['cuda']:.2f}s, cpu "
         f"{walls['cpu']:.2f}s, fused scan_runs.cu launches {launches}; cuda "
         f"TSV and GFF3 byte-identical to cpu's")
+    _encode_assembly(torch, gdir, bed, card)
     log(f"phase 18 (ENCODE-shaped peak set): {time.perf_counter() - t0:.1f}s")
     return launches
 
@@ -2644,7 +2729,7 @@ def main() -> int:
         cases_json = sys.argv[2]
     sys.path.insert(0, HERE)
     t_start = time.perf_counter()
-    phase_environment(torch)
+    card = phase_environment(torch)
     phase_build()
     hist_cases = phase_kernel_vs_plain(torch)
     phase_cuda_vs_cpu(torch)
@@ -2668,7 +2753,7 @@ def main() -> int:
         compact_cases, comp_hist_cases = phase_device_half(torch, wd, gdir)
         three = phase_three_launch_route(torch, wd, gdir, synth)
         ladder, genome24 = phase_many_motifs(torch, wd, gdir)
-        encode_launches = phase_encode_peaks(torch, wd, gdir, synth)
+        encode_launches = phase_encode_peaks(torch, wd, gdir, synth, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     if cases_json:
         with open(cases_json, "w") as f:

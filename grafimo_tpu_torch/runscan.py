@@ -48,11 +48,15 @@ from grafimo_tpu_torch.graph.runs import (
     region_runs,
 )
 from grafimo_tpu_torch import kernels
+from grafimo_tpu_torch.assemble import (
+    backbone_hits,
+    prepare_run,
+    qvalue_table,
+)
 from grafimo_tpu_torch.graph.sitegraph import SiteGraph
 from grafimo_tpu_torch.models.motif import Motif
 from grafimo_tpu_torch.models.pvalue import PvalueLookup
 from grafimo_tpu_torch.report.results import apply_report_filters, build_results_df
-from grafimo_tpu_torch.ops.qvalue import qvalues_from_histogram
 from grafimo_tpu_torch.device import split_rows
 from grafimo_tpu_torch.parallel import cluster
 from grafimo_tpu_torch.ops.score_runs import (
@@ -360,9 +364,12 @@ class RegionRuns:
     _run_cache: Dict[Tuple[int, int], Run] = field(default_factory=dict)
 
     def get_run(self, ref: Tuple[int, int]) -> Run:
-        """Materialise run metadata lazily (hits only)."""
+        """Materialise run metadata lazily (hits only); the caches that
+        ``build_single_run`` reads are filled from arrays first
+        (:func:`assemble.prepare_run`)."""
         run = self._run_cache.get(ref)
         if run is None:
+            prepare_run(self.graph, self.start, self.stop, self.width, ref)
             run = build_single_run(
                 self.graph, self.start, self.stop, self.width, ref
             )
@@ -1336,6 +1343,16 @@ def _merge_rows(gathered):
     return merged
 
 
+def _hit_fields(rr: RegionRuns, ref: Tuple[int, int], offs, k: int):
+    """``reconstruct_hits_batch``'s fields for hits at ``offs`` of run
+    ``ref`` of region ``rr``.  A backbone hit is a reference window, read
+    off the graph unless the region's Python extraction cached its run;
+    every other run is materialised (``RegionRuns.get_run``)."""
+    if ref[0] == -1 and ref not in rr._run_cache:
+        return backbone_hits(rr.graph, rr.start, offs, k)
+    return reconstruct_hits_batch(rr.graph, rr.get_run(ref), offs, k)
+
+
 def _assemble_columns(res, motifs, by_key, col_meta, k):
     """The per-motif report columns of every hit (coordinates,
     host-rescored score, sequence, frequency, ref flag) and its global
@@ -1355,11 +1372,10 @@ def _assemble_columns(res, motifs, by_key, col_meta, k):
     ]
     for source, lst in by_source.items():
         rr = by_key[source[0]]
-        run = rr.get_run(source[1])
         offs = np.array([o for o, _ in lst], dtype=np.int64)
         cols = np.array([c for _, c in lst], dtype=np.int64)
-        begins, ends, seq_bytes, is_ref, freqs = reconstruct_hits_batch(
-            rr.graph, run, offs, k
+        begins, ends, seq_bytes, is_ref, freqs = _hit_fields(
+            rr, source[1], offs, k
         )
         scores = np.zeros(len(lst), dtype=np.int64)
         seqs_out: List[Optional[str]] = [None] * len(lst)
@@ -1401,12 +1417,6 @@ def _build_reports(
     per-motif DataFrames."""
     out: Dict[str, pd.DataFrame] = {}
     for mi, motif in enumerate(motifs):
-        hist_m = _motif_hist(res.hists, col_meta, mi)
-        qmap = (
-            None
-            if no_qvalue
-            else qvalues_from_histogram(hist_m, lookups[mi].pvalues)
-        )
         rows = per_motif[mi]
         scores_int = np.array(rows["scores"], dtype=np.int64)
         pvalues = (
@@ -1415,19 +1425,23 @@ def _build_reports(
             else np.zeros(0)
         )
         qvalues = None
-        if qmap is not None:
-            missing = [int(s) for s in scores_int if int(s) not in qmap]
-            if missing:
+        if not no_qvalue:
+            qvalues = np.zeros(0, dtype=np.float64)
+        if not no_qvalue and len(scores_int):
+            # a motif with no hit row needs no q-value table
+            occupied, q = qvalue_table(
+                _motif_hist(res.hists, col_meta, mi), lookups[mi].pvalues
+            )
+            missing = scores_int[~np.isin(scores_int, occupied)]
+            if len(missing):
                 # every hit's score must occupy its histogram bin; a miss
                 # means device and host scores disagree
                 raise _DeviceHostMismatch(
                     "device/host score mismatch: hit scores "
-                    f"{sorted(set(missing))[:5]} absent from the device "
-                    "histogram"
+                    f"{sorted(set(missing.tolist()))[:5]} absent from the "
+                    "device histogram"
                 )
-            qvalues = np.array(
-                [qmap[int(s)] for s in scores_int], dtype=np.float64
-            )
+            qvalues = q[np.searchsorted(occupied, scores_int)]
         df = build_results_df(
             motif,
             rows["seqnames"], rows["starts"], rows["stops"], rows["strands"],

@@ -4,7 +4,7 @@ card.
 
     python3 tools/bench_torch_chrom_scale.py [--mbp 50]
         [--encode-regions 0] [--dir 0] [--dir-mbp 8] [--seed 0]
-        [--workdir DIR] [--reuse] [--check-cpu]
+        [--workdir DIR] [--reuse] [--check-cpu] [TREE ...]
 
 The port's counterpart of ``tools/bench_chrom_scale.py``, with its
 inputs: a ``--mbp`` Mbp chromosome ``21`` at the 1KGP profile (variants
@@ -26,15 +26,26 @@ own interpreter, with JAX and the reference package blocked:
 (MA0139.1) ``findmotif`` on ``--device cuda``, twice, whose reports
 must be equal; the ENCODE-shaped BED; ``buildvg`` of each directory
 chromosome into the same graph directory and one ``findmotif -d`` over
-them all (q-values over the merged hit set).  Each ``findmotif`` prints
+them all (q-values over the merged hit set).  Each TREE (a checkout of
+this repository, default this one) runs every ``findmotif`` with its own
+port, in the order listed, once each (list trees in turns to compare two
+versions on one card, e.g. ``PARENT . . PARENT``); the inputs and graphs
+are this checkout's, made once, and every report must be equal across
+trees and runs.  Each ``findmotif`` prints
 its wall, peak RSS, peak device memory, ``Scanned sequences``, the
 ``run scan:`` line's windows/strand and raw hits, its slice blocks and
 flush blocks (``runscan.plan_slices``), its device->host reads
 (``runscan.READS``), its launches by route (``ops/score_runs.COUNTS``,
 ``ops/hist.COUNTS``, ``ops/compact.COUNTS``), its hits, and the split
-of its wall: graph load, host batching, scan, hit assembly (within it,
-the backbone run's build and ``cluster_sites``), statistics, report
-writing.  With ``--check-cpu`` each ``findmotif`` runs once more on
+of its wall: graph load, host batching, scan, hit assembly, statistics,
+report writing.  Within hit assembly and statistics, each function a
+tree has: the pinned ``graph/runs.py`` builds (``backbone_run_s``,
+``cluster_sites_s``), which the route of ``grafimo_tpu_torch/assemble.py``
+reaches only for runs cached by the Python extraction or rebuilt after a
+checkpoint (its ``cluster_sites`` calls then read the memo), and that
+route's ``backbone_hits_s`` (the first reference node array build
+included), ``clusters_s`` (``region_clusters``) and ``ref_nodes_s``
+(``ref_node_array``); ``qvalue_s`` is the q-value tables on either route.  With ``--check-cpu`` each ``findmotif`` runs once more on
 ``--device cpu`` and its TSV and GFF3 must equal the card's byte for
 byte; the timed runs stay on the card.  The tool exits non-zero when a
 run fails or a check does not hold: reports that differ, a plain
@@ -103,6 +114,18 @@ timed(rs, '_assemble_columns', 'hit_assembly_s')
 timed(runs, '_build_backbone_run', 'backbone_run_s')
 timed(runs, 'cluster_sites', 'cluster_sites_s')
 rs.cluster_sites = runs.cluster_sites
+# the assembly route of grafimo_tpu_torch/assemble.py, where the tree has it
+for name, key in (('backbone_hits', 'backbone_hits_s'),
+                  ('qvalue_table', 'qvalue_s'),
+                  ('qvalues_from_histogram', 'qvalue_s')):
+    if hasattr(rs, name):
+        timed(rs, name, key)
+try:
+    import grafimo_tpu_torch.assemble as asm
+    timed(asm, 'region_clusters', 'clusters_s')
+    timed(asm, 'ref_node_array', 'ref_nodes_s')
+except ImportError:
+    pass
 timed(rs, '_build_reports', 'statistics_s')
 timed(wf, 'write_results', 'report_write_s')
 rc = main(sys.argv[1:])
@@ -121,6 +144,15 @@ sys.stderr.write('BENCH ' + json.dumps(seen) + '\n')
 sys.exit(rc)
 """
 
+# a tree's kernels and C++ engine built before its first timed run
+WARM_PROG = r"""
+import sys
+sys.modules['jax'] = sys.modules['grafimo_tpu'] = None
+from grafimo_tpu_torch import kernels, native
+kernels.load()
+native._lib()
+"""
+
 RUN_SCAN = re.compile(r"run scan: (\d+) device batches, (\d+) windows/strand, "
                       r"(\d+) raw hits \(([\d.]+)s\)")
 PHASES = ("graph_load_s", "batching_s", "scan_s", "hit_assembly_s",
@@ -132,11 +164,16 @@ def log(msg: str) -> None:
     sys.stderr.flush()
 
 
-def run_cli(args, timeout=7200) -> dict:
-    """The port's CLI with ``args`` in a fresh interpreter: its wall, its
-    stdout and the numbers of its ``BENCH`` line; raises on failure."""
+SPLIT = ("backbone_run_s", "cluster_sites_s", "backbone_hits_s",
+         "clusters_s", "ref_nodes_s", "qvalue_s")
+
+
+def run_cli(args, timeout=7200, tree=HERE) -> dict:
+    """``tree``'s port's CLI with ``args`` in a fresh interpreter: its
+    wall, its stdout and the numbers of its ``BENCH`` line; raises on
+    failure."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", CLI_PROG, *args], cwd=HERE,
+    proc = subprocess.run([sys.executable, "-c", CLI_PROG, *args], cwd=tree,
                           capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
     bench = [ln for ln in proc.stderr.splitlines() if ln.startswith("BENCH ")]
@@ -208,11 +245,14 @@ def _report_bytes(outdir: str) -> bytes:
     return blob
 
 
-def findmotif(gdir: str, bed: str, outdir: str, device: str) -> dict:
+def findmotif(gdir: str, bed: str, outdir: str, device: str,
+              tree: str = HERE) -> dict:
     """One ``findmotif`` of CTCF over ``bed`` on ``device`` (the JAX
-    tool's flags): its numbers, checked."""
+    tool's flags) by ``tree``'s port: its numbers, checked."""
     r = run_cli(["findmotif", "-d", gdir, "-b", bed, "-m", MOTIF,
-                 "-o", outdir, "--verbose", "--device", device, "--debug"])
+                 "-o", outdir, "--verbose", "--device", device, "--debug"],
+                tree=tree)
+    r["tree"] = tree
     text = r.pop("stdout")
     m = RUN_SCAN.findall(text)
     scanned = [int(ln.split()[-1]) for ln in text.splitlines()
@@ -245,24 +285,26 @@ def findmotif(gdir: str, bed: str, outdir: str, device: str) -> dict:
         f"{la}, RSS {r['maxrss_gb']:.2f} GB, device peak "
         f"{r.get('device_peak_gib', 0.0):.2f} GiB; "
         + ", ".join(f"{p} {r[p]:.1f}" for p in PHASES)
-        + f", backbone_run_s {r['backbone_run_s']:.1f}, cluster_sites_s "
-          f"{r['cluster_sites_s']:.1f}")
+        + "".join(f", {p} {r[p]:.2f}" for p in SPLIT if p in r)
+        + f"; {tree}")
     return r
 
 
 def scan_leg(gdir: str, bed: str, outdir: str, reps: int,
-             check_cpu: bool) -> dict:
-    """``reps`` runs on the card, reports equal across them, then with
-    ``check_cpu`` one on the CPU whose TSV and GFF3 must be the card's."""
-    runs = [findmotif(gdir, bed, f"{outdir}_rep{rep}", "cuda")
-            for rep in range(reps)]
-    if any(_report_bytes(f"{outdir}_rep{rep}") != _report_bytes(
-            f"{outdir}_rep0") for rep in range(1, reps)):
-        raise RuntimeError(f"{bed}: reports differ between reps")
+             check_cpu: bool, trees=(HERE,)) -> dict:
+    """``reps`` runs of each tree in turn on the card, reports equal
+    across them, then with ``check_cpu`` one on the CPU whose TSV and
+    GFF3 must be the card's."""
+    runs = [findmotif(gdir, bed, f"{outdir}_rep{rep}_{i}", "cuda", tree)
+            for rep in range(reps) for i, tree in enumerate(trees)]
+    first = _report_bytes(f"{outdir}_rep0_0")
+    if any(_report_bytes(f"{outdir}_rep{rep}_{i}") != first
+           for rep in range(reps) for i in range(len(trees))):
+        raise RuntimeError(f"{bed}: reports differ between runs")
     leg = {"runs": runs}
     if check_cpu:
         cpu = findmotif(gdir, bed, f"{outdir}_cpu", "cpu")
-        if _report_bytes(f"{outdir}_cpu") != _report_bytes(f"{outdir}_rep0"):
+        if _report_bytes(f"{outdir}_cpu") != first:
             raise RuntimeError(f"{bed}: cuda and cpu reports differ")
         leg["cpu"] = cpu
         leg["cpu_identical"] = True
@@ -300,6 +342,7 @@ def main() -> int:
                     help="reuse the chromosome's graph in --workdir")
     ap.add_argument("--check-cpu", action="store_true",
                     help="rerun each findmotif on the CPU and compare")
+    ap.add_argument("trees", nargs="*")
     args = ap.parse_args()
     import torch
 
@@ -312,8 +355,13 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from grafimo_tpu_torch import kernels
 
+    trees = [os.path.abspath(t) for t in args.trees] or [HERE]
     t0 = time.perf_counter()
     kernels.load()  # the build once, outside every timed run
+    for tree in sorted(set(trees) - {HERE}):  # other trees' builds too
+        subprocess.run([sys.executable, "-c", WARM_PROG], cwd=tree,
+                       check=True, timeout=1800)
+    reps = 2 if len(trees) == 1 else 1
     wd = args.workdir
     os.makedirs(wd, exist_ok=True)
     gdir = os.path.join(wd, "graphs")
@@ -334,13 +382,14 @@ def main() -> int:
     whole = os.path.join(wd, "whole.bed")
     with open(whole, "w") as f:
         f.write(f"chr21\t0\t{inputs['length']}\n")
-    out["scan"] = scan_leg(gdir, whole, os.path.join(wd, "out_whole"), 2,
-                           args.check_cpu)
+    out["trees"] = trees
+    out["scan"] = scan_leg(gdir, whole, os.path.join(wd, "out_whole"), reps,
+                           args.check_cpu, trees)
     log(f"so far: {json.dumps(out)}")
     if args.encode_regions:
         out["encode_scan"] = scan_leg(
             gdir, os.path.join(wd, "encode_like.bed"),
-            os.path.join(wd, "out_encode"), 1, args.check_cpu)
+            os.path.join(wd, "out_encode"), 1, args.check_cpu, trees)
         out["encode_scan"]["regions"] = args.encode_regions
         log(f"so far: {json.dumps(out)}")
     if args.dir:
@@ -351,7 +400,7 @@ def main() -> int:
         out["dir_build_s"] = time.perf_counter() - t0
         out["dir_scan"] = scan_leg(gdir, os.path.join(wd, "dir.bed"),
                                    os.path.join(wd, "out_dir"), 1,
-                                   args.check_cpu)
+                                   args.check_cpu, trees)
         out["dir_scan"].update(chroms=args.dir, mbp_each=args.dir_mbp)
     out["tool_maxrss_gb"] = resource.getrusage(
         resource.RUSAGE_SELF).ru_maxrss / 2**20

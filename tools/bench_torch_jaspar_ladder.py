@@ -21,8 +21,14 @@ chromosome on ``cuda:0`` (``threshold=1e-6``, ``recomb=False``), with
 
 Per width it prints the motifs and device columns, the slice blocks and
 rows per block, the host batching (``runscan.batch_runs``), scan
-(``scan_batches``), report (hit assembly and per-motif statistics) and
-whole-pass seconds, the kernel launches per
+(``scan_batches``), report (hit assembly, ``_assemble_columns``, plus
+per-motif statistics, ``_build_reports``) and whole-pass seconds, the
+report's split by function where the tree has it (the pinned
+``graph/runs.py`` builds ``backbone_run_s`` and ``cluster_sites_s``,
+which the route of ``grafimo_tpu_torch/assemble.py`` reaches only for
+runs cached by the Python extraction; that route's ``backbone_hits_s``,
+``clusters_s`` and ``ref_nodes_s``; ``qvalue_s``, the q-value tables on
+either route), the kernel launches per
 route (``ops/score_runs.COUNTS``, ``ops/hist.COUNTS``,
 ``ops/compact.COUNTS``), the device's busy time and idle share inside
 the scan span, the hits, and window-strand-motif scorings (the
@@ -48,6 +54,9 @@ SEED = 0
 HAPLOTYPES = 5096
 THRESHOLD = 1e-6
 SPAN = "bench::scan_batches"
+# the report's split by function (``report_s`` = assembly + statistics)
+SPLIT = ("assembly_s", "statistics_s", "backbone_run_s", "cluster_sites_s",
+         "backbone_hits_s", "clusters_s", "ref_nodes_s", "qvalue_s")
 
 
 def _analyse(trace_path: str) -> dict:
@@ -70,6 +79,7 @@ def ladder(tree: str, graph_path: str, meme: str, work: str,
     import torch
 
     import grafimo_tpu_torch
+    import grafimo_tpu_torch.graph.runs as runs
     import grafimo_tpu_torch.runscan as rs
     from grafimo_tpu_torch.models.parse import load_motifs
     from grafimo_tpu_torch.ops import compact, hist
@@ -99,8 +109,8 @@ def ladder(tree: str, graph_path: str, meme: str, work: str,
         by_width.setdefault(mo.width, []).append(mo)
 
     # time and count through the runscan module's own names
-    seen = {"batch_s": 0.0, "scan_s": 0.0, "report_s": 0.0, "rows": [],
-            "wsm": 0}
+    seen = {"batch_s": 0.0, "scan_s": 0.0, "rows": [], "wsm": 0,
+            **{key: 0.0 for key in SPLIT}}
     real_scan, real_block = rs.scan_batches, rs.scan_block
 
     def timed(fn, key):
@@ -127,13 +137,30 @@ def ladder(tree: str, graph_path: str, meme: str, work: str,
 
     rs.scan_batches, rs.scan_block = scan_batches, scan_block
     rs.batch_runs = timed(rs.batch_runs, "batch_s")
-    rs._assemble_columns = timed(rs._assemble_columns, "report_s")
-    rs._build_reports = timed(rs._build_reports, "report_s")
+    rs._assemble_columns = timed(rs._assemble_columns, "assembly_s")
+    rs._build_reports = timed(rs._build_reports, "statistics_s")
+    runs._build_backbone_run = timed(runs._build_backbone_run,
+                                     "backbone_run_s")
+    runs.cluster_sites = rs.cluster_sites = timed(runs.cluster_sites,
+                                                  "cluster_sites_s")
+    for name, key in (("backbone_hits", "backbone_hits_s"),
+                      ("qvalue_table", "qvalue_s"),
+                      ("qvalues_from_histogram", "qvalue_s")):
+        if hasattr(rs, name):
+            setattr(rs, name, timed(getattr(rs, name), key))
+    try:
+        import grafimo_tpu_torch.assemble as asm
+    except ImportError:  # a tree from before the module
+        pass
+    else:
+        asm.region_clusters = timed(asm.region_clusters, "clusters_s")
+        asm.ref_node_array = timed(asm.ref_node_array, "ref_nodes_s")
     widths = []
     t_all = time.perf_counter()
     for k in sorted(by_width):
         ms = by_width[k]
-        seen.update(batch_s=0.0, scan_s=0.0, report_s=0.0, rows=[], wsm=0)
+        seen.update(batch_s=0.0, scan_s=0.0, rows=[], wsm=0,
+                    **{key: 0.0 for key in SPLIT})
         for counts in (sr, hist, compact):
             counts.reset_counts()
         trace = os.path.join(work, f"trace_k{k}.json")
@@ -155,7 +182,9 @@ def ladder(tree: str, graph_path: str, meme: str, work: str,
                                int(statistics.median(seen["rows"] or [0])),
                                max(seen["rows"], default=0)],
             "pass_s": dt, "batch_s": seen["batch_s"],
-            "scan_s": seen["scan_s"], "report_s": seen["report_s"],
+            "scan_s": seen["scan_s"],
+            "report_s": seen["assembly_s"] + seen["statistics_s"],
+            **{key: seen[key] for key in SPLIT},
             "launches": {"scan_runs_fused": sr.COUNTS["fused"],
                          "scan_runs": sr.COUNTS["kernel"],
                          "exact_hist": hist.COUNTS["kernel"],
@@ -182,7 +211,9 @@ def ladder(tree: str, graph_path: str, meme: str, work: str,
             f"width {k:2d}: {row['motifs']:3d} motifs, {row['columns']:3d} "
             f"columns; {row['blocks']} blocks of {row['rows_per_block']} "
             f"rows; batching {row['batch_s']:.2f}s, scan {row['scan_s']:.2f}s"
-            f", report {row['report_s']:.2f}s, pass {dt:.2f}s; launches {row['launches']}; idle share "
+            f", report {row['report_s']:.2f}s (assembly "
+            f"{row['assembly_s']:.2f}, statistics {row['statistics_s']:.2f})"
+            f", pass {dt:.2f}s; launches {row['launches']}; idle share "
             f"{row.get('idle_share', float('nan')):.3f}; hits {row['hits']}; "
             f"{row['wsm_per_scan_s'] / 1e9:.2f} G window-strand-motif/s of "
             f"scan\n")
@@ -190,7 +221,7 @@ def ladder(tree: str, graph_path: str, meme: str, work: str,
     wall = time.perf_counter() - t_all
     total = {key: sum(w[key] for w in widths)
              for key in ("blocks", "batch_s", "scan_s", "report_s", "hits",
-                         "window_strand_motif")}
+                         "window_strand_motif") + SPLIT}
     launches = {key: sum(w["launches"][key] for w in widths)
                 for key in widths[0]["launches"]}
     out = {"tree": tree, "device": device, "motifs": len(motifs),
