@@ -1,0 +1,11 @@
+"""Seconds a ``findmotif`` call spends writing its TSV reports: the
+program's ``report_tsv_s`` spans (``results.to_csv`` in
+``report/writer.write_results``), read from a traced run's trace.
+Nothing to read untraced, or where the program opens no such span."""
+
+WRAPS = None
+
+
+def read(record):
+    seconds = record.span_seconds("report_tsv_s")
+    return seconds / record.calls if seconds and record.calls else None

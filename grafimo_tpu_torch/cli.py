@@ -261,8 +261,9 @@ def get_parser() -> argparse.ArgumentParser:
     # same
     helps = {
         "profile_dir": "write a torch.profiler trace (CPU and CUDA "
-                       "activities) of the scan phase to this directory, "
-                       "one Chrome trace per process",
+                       "activities) of the whole findmotif call to this "
+                       "directory, one Chrome trace per process, its "
+                       "phases named as --verbose's table names them",
         "coordinator": "multi-host: torch.distributed (gloo) rendezvous "
                        "address host:port, or \"auto\" to read torchrun's "
                        "MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK",

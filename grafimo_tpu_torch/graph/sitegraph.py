@@ -28,6 +28,7 @@ import numpy as np
 
 from grafimo_tpu_torch.graph.haplo import HaploIndex
 from grafimo_tpu_torch.io.vcf import VcfRecord
+from grafimo_tpu_torch.spans import span
 
 
 @dataclass
@@ -167,14 +168,15 @@ class SiteGraph:
 
             class _Fast:
                 def __getitem__(self, name):
-                    if zf is not None:
-                        import io as _io
+                    with span("graph_inflate_s"):
+                        if zf is not None:
+                            import io as _io
 
-                        raw = zf.read(name + ".npy")
-                        return np.lib.format.read_array(
-                            _io.BytesIO(raw), allow_pickle=False
-                        )
-                    return orig[name]
+                            raw = zf.read(name + ".npy")
+                            return np.lib.format.read_array(
+                                _io.BytesIO(raw), allow_pickle=False
+                            )
+                        return orig[name]
 
                 def __contains__(self, name):
                     return name in orig

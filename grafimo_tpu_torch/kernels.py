@@ -19,7 +19,8 @@ import os
 import shutil
 import subprocess
 import threading
-import time
+
+from grafimo_tpu_torch import spans
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [
@@ -82,29 +83,31 @@ def build() -> str:
     ]
     # the target flags only keep nvcc from warning about its default arch
     link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
-    t0 = time.perf_counter()
-    try:
-        procs = [
-            subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-            for cmd in compiles
-        ]
-        logs = [p.communicate()[0] for p in procs]
-        for cmd, proc, out in zip(compiles, procs, logs):
+    with spans.span("kernel_build_s") as timed:
+        try:
+            procs = [
+                subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for cmd in compiles
+            ]
+            logs = [p.communicate()[0] for p in procs]
+            for cmd, proc, out in zip(compiles, procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({' '.join(cmd)}):\n{out}"
+                    )
+            proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
-        proc = subprocess.run(link, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc link failed ({' '.join(link)}):\n{proc.stdout}"
-            )
-        os.replace(tmp, so_path)
-    finally:
-        for path in (*objs, tmp):
-            if os.path.exists(path):
-                os.remove(path)
-    BUILD_SECONDS = time.perf_counter() - t0
+                raise RuntimeError(
+                    f"nvcc link failed ({' '.join(link)}):\n{proc.stdout}"
+                )
+            os.replace(tmp, so_path)
+        finally:
+            for path in (*objs, tmp):
+                if os.path.exists(path):
+                    os.remove(path)
+    BUILD_SECONDS = timed.seconds
     BUILD_LOG = "".join(logs) + proc.stdout
     return so_path
 

@@ -16,6 +16,8 @@ import threading
 
 import numpy as np
 
+from grafimo_tpu_torch.spans import span
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [
     os.path.join(_HERE, "graphite.cpp"),
@@ -163,36 +165,37 @@ def _flatten_graph(graph):
     flat = getattr(graph, "_native_flat_cache", None)
     if flat is not None:
         return flat
-    seq = _CODE_LUT[np.frombuffer(graph.seq.encode("ascii"), np.uint8)]
-    site_start, site_end, site_aoff, site_nall = [], [], [], []
-    allele_off, allele_len = [], []
-    blob_parts = []
-    blob_pos = 0
-    for s in graph.sites:
-        site_start.append(s.ref_start)
-        site_end.append(s.ref_end)
-        site_aoff.append(len(allele_off))
-        site_nall.append(len(s.alleles))
-        for a in s.alleles:
-            codes = _CODE_LUT[np.frombuffer(a.encode("ascii"), np.uint8)]
-            allele_off.append(blob_pos)
-            allele_len.append(len(codes))
-            blob_parts.append(codes)
-            blob_pos += len(codes)
-    flat = dict(
-        seq=np.ascontiguousarray(seq),
-        site_start=np.array(site_start, dtype=np.int64),
-        site_end=np.array(site_end, dtype=np.int64),
-        site_aoff=np.array(site_aoff, dtype=np.int64),
-        site_nall=np.array(site_nall, dtype=np.int32),
-        allele_off=np.array(allele_off, dtype=np.int64),
-        allele_len=np.array(allele_len, dtype=np.int64),
-        blob=(
-            np.concatenate(blob_parts)
-            if blob_parts
-            else np.zeros(0, dtype=np.uint8)
-        ),
-    )
+    with span("graph_flatten_s"):
+        seq = _CODE_LUT[np.frombuffer(graph.seq.encode("ascii"), np.uint8)]
+        site_start, site_end, site_aoff, site_nall = [], [], [], []
+        allele_off, allele_len = [], []
+        blob_parts = []
+        blob_pos = 0
+        for s in graph.sites:
+            site_start.append(s.ref_start)
+            site_end.append(s.ref_end)
+            site_aoff.append(len(allele_off))
+            site_nall.append(len(s.alleles))
+            for a in s.alleles:
+                codes = _CODE_LUT[np.frombuffer(a.encode("ascii"), np.uint8)]
+                allele_off.append(blob_pos)
+                allele_len.append(len(codes))
+                blob_parts.append(codes)
+                blob_pos += len(codes)
+        flat = dict(
+            seq=np.ascontiguousarray(seq),
+            site_start=np.array(site_start, dtype=np.int64),
+            site_end=np.array(site_end, dtype=np.int64),
+            site_aoff=np.array(site_aoff, dtype=np.int64),
+            site_nall=np.array(site_nall, dtype=np.int32),
+            allele_off=np.array(allele_off, dtype=np.int64),
+            allele_len=np.array(allele_len, dtype=np.int64),
+            blob=(
+                np.concatenate(blob_parts)
+                if blob_parts
+                else np.zeros(0, dtype=np.uint8)
+            ),
+        )
     graph._native_flat_cache = flat
     return flat
 
@@ -316,104 +319,105 @@ def batch_regions_native(graph, regions, k, buckets, max_combos=1 << 14,
     assert slots_arr.size == bucket_arr.size
     if n_threads <= 0:
         n_threads = os.cpu_count() or 1
-    handle = lib.gt_batch_regions(
-        flat["seq"].ctypes.data_as(u8p), c.c_int64(flat["seq"].size),
-        c.c_int64(len(flat["site_start"])),
-        flat["site_start"].ctypes.data_as(i64p),
-        flat["site_end"].ctypes.data_as(i64p),
-        flat["site_aoff"].ctypes.data_as(i64p),
-        flat["site_nall"].ctypes.data_as(i32p),
-        flat["allele_off"].ctypes.data_as(i64p),
-        flat["allele_len"].ctypes.data_as(i64p),
-        flat["blob"].ctypes.data_as(u8p),
-        starts.ctypes.data_as(i64p), ends.ctypes.data_as(i64p),
-        c.c_int64(len(regions)), c.c_int64(k),
-        bucket_arr.ctypes.data_as(i64p),
-        slots_arr.ctypes.data_as(i64p), c.c_int64(bucket_arr.size),
-        c.c_int64(max_combos), c.c_int64(n_threads),
-        c.c_int64(1 if dense else 0),
-    )
-    if not handle:
-        raise RuntimeError("gt_batch_regions failed")
-    try:
-        rows = np.zeros(bucket_arr.size, dtype=np.int64)
-        rows_p = np.zeros(bucket_arr.size, dtype=np.int64)
-        rows_s = np.zeros(bucket_arr.size, dtype=np.int64)
-        lib.gt_batch_rows(
-            handle, rows.ctypes.data_as(i64p),
-            rows_p.ctypes.data_as(i64p), rows_s.ctypes.data_as(i64p),
+    with span("native_batch_s"):
+        handle = lib.gt_batch_regions(
+            flat["seq"].ctypes.data_as(u8p), c.c_int64(flat["seq"].size),
+            c.c_int64(len(flat["site_start"])),
+            flat["site_start"].ctypes.data_as(i64p),
+            flat["site_end"].ctypes.data_as(i64p),
+            flat["site_aoff"].ctypes.data_as(i64p),
+            flat["site_nall"].ctypes.data_as(i32p),
+            flat["allele_off"].ctypes.data_as(i64p),
+            flat["allele_len"].ctypes.data_as(i64p),
+            flat["blob"].ctypes.data_as(u8p),
+            starts.ctypes.data_as(i64p), ends.ctypes.data_as(i64p),
+            c.c_int64(len(regions)), c.c_int64(k),
+            bucket_arr.ctypes.data_as(i64p),
+            slots_arr.ctypes.data_as(i64p), c.c_int64(bucket_arr.size),
+            c.c_int64(max_combos), c.c_int64(n_threads),
+            c.c_int64(1 if dense else 0),
         )
-        n_brk = int(lib.gt_splice_breaks())
-        per_bucket = {}
-        for bi, r_len in enumerate(bucket_arr.tolist()):
-            n = int(rows[bi])
-            n_p = int(rows_p[bi])
-            n_s = int(rows_s[bi])
-            if n == 0 and n_p == 0 and n_s == 0:
-                continue
-            noff = r_len - k + 1
-            entry = {}
-            if n:
-                packed = np.empty((n, r_len // 4), dtype=np.uint8)
-                nbits = np.empty((n, (r_len + 7) // 8), dtype=np.uint8)
-                vbits = np.empty((n, (noff + 7) // 8), dtype=np.uint8)
-                meta = np.empty((n, 4), dtype=np.int32)
-                lib.gt_batch_export(
-                    handle, c.c_int64(bi),
-                    packed.ctypes.data_as(u8p), nbits.ctypes.data_as(u8p),
-                    vbits.ctypes.data_as(u8p), meta.ctypes.data_as(i32p),
-                )
-                entry.update(
-                    packed=packed, nbits=nbits, vbits=vbits, meta=meta
-                )
-            if n_p:
-                slots = int(slots_arr[bi])
-                gstart = np.empty(n_p, dtype=np.int64)
-                pat = np.empty((n_p, slots), dtype=np.int16)
-                vbits_p = np.empty((n_p, (noff + 7) // 8), dtype=np.uint8)
-                meta_p = np.empty((n_p, 4), dtype=np.int32)
-                lib.gt_batch_export_patched(
-                    handle, c.c_int64(bi),
-                    gstart.ctypes.data_as(i64p),
-                    pat.ctypes.data_as(i16p),
-                    vbits_p.ctypes.data_as(u8p),
-                    meta_p.ctypes.data_as(i32p),
-                )
-                entry["patched"] = dict(
-                    gstart=gstart, patches=pat, vbits=vbits_p, meta=meta_p
-                )
-            if n_s:
-                slots = int(slots_arr[bi])
-                gstart_s = np.empty(n_s, dtype=np.int64)
-                splice = np.empty((n_s, 2 * n_brk), dtype=np.int16)
-                pat_s = np.empty((n_s, slots), dtype=np.int16)
-                vbits_s = np.empty((n_s, (noff + 7) // 8), dtype=np.uint8)
-                meta_s = np.empty((n_s, 4), dtype=np.int32)
-                lib.gt_batch_export_spliced(
-                    handle, c.c_int64(bi),
-                    gstart_s.ctypes.data_as(i64p),
-                    splice.ctypes.data_as(i16p),
-                    pat_s.ctypes.data_as(i16p),
-                    vbits_s.ctypes.data_as(u8p),
-                    meta_s.ctypes.data_as(i32p),
-                )
-                entry["spliced"] = dict(
-                    gstart=gstart_s, splice=splice, patches=pat_s,
-                    vbits=vbits_s, meta=meta_s,
-                )
-            per_bucket[int(r_len)] = entry
-        n_ovf = int(lib.gt_batch_n_overflows(handle))
-        overflow = np.empty((n_ovf, 2), dtype=np.int32)
-        if n_ovf:
-            lib.gt_batch_overflows(handle, overflow.ctypes.data_as(i32p))
-        n_dfb = int(lib.gt_batch_n_dense_fallbacks(handle))
-        dense_fb = np.empty((n_dfb, 3), dtype=np.int32)
-        if n_dfb:
-            lib.gt_batch_dense_fallbacks(
-                handle, dense_fb.ctypes.data_as(i32p)
+        if not handle:
+            raise RuntimeError("gt_batch_regions failed")
+        try:
+            rows = np.zeros(bucket_arr.size, dtype=np.int64)
+            rows_p = np.zeros(bucket_arr.size, dtype=np.int64)
+            rows_s = np.zeros(bucket_arr.size, dtype=np.int64)
+            lib.gt_batch_rows(
+                handle, rows.ctypes.data_as(i64p),
+                rows_p.ctypes.data_as(i64p), rows_s.ctypes.data_as(i64p),
             )
-    finally:
-        lib.gt_batch_free(handle)
+            n_brk = int(lib.gt_splice_breaks())
+            per_bucket = {}
+            for bi, r_len in enumerate(bucket_arr.tolist()):
+                n = int(rows[bi])
+                n_p = int(rows_p[bi])
+                n_s = int(rows_s[bi])
+                if n == 0 and n_p == 0 and n_s == 0:
+                    continue
+                noff = r_len - k + 1
+                entry = {}
+                if n:
+                    packed = np.empty((n, r_len // 4), dtype=np.uint8)
+                    nbits = np.empty((n, (r_len + 7) // 8), dtype=np.uint8)
+                    vbits = np.empty((n, (noff + 7) // 8), dtype=np.uint8)
+                    meta = np.empty((n, 4), dtype=np.int32)
+                    lib.gt_batch_export(
+                        handle, c.c_int64(bi),
+                        packed.ctypes.data_as(u8p), nbits.ctypes.data_as(u8p),
+                        vbits.ctypes.data_as(u8p), meta.ctypes.data_as(i32p),
+                    )
+                    entry.update(
+                        packed=packed, nbits=nbits, vbits=vbits, meta=meta
+                    )
+                if n_p:
+                    slots = int(slots_arr[bi])
+                    gstart = np.empty(n_p, dtype=np.int64)
+                    pat = np.empty((n_p, slots), dtype=np.int16)
+                    vbits_p = np.empty((n_p, (noff + 7) // 8), dtype=np.uint8)
+                    meta_p = np.empty((n_p, 4), dtype=np.int32)
+                    lib.gt_batch_export_patched(
+                        handle, c.c_int64(bi),
+                        gstart.ctypes.data_as(i64p),
+                        pat.ctypes.data_as(i16p),
+                        vbits_p.ctypes.data_as(u8p),
+                        meta_p.ctypes.data_as(i32p),
+                    )
+                    entry["patched"] = dict(
+                        gstart=gstart, patches=pat, vbits=vbits_p, meta=meta_p
+                    )
+                if n_s:
+                    slots = int(slots_arr[bi])
+                    gstart_s = np.empty(n_s, dtype=np.int64)
+                    splice = np.empty((n_s, 2 * n_brk), dtype=np.int16)
+                    pat_s = np.empty((n_s, slots), dtype=np.int16)
+                    vbits_s = np.empty((n_s, (noff + 7) // 8), dtype=np.uint8)
+                    meta_s = np.empty((n_s, 4), dtype=np.int32)
+                    lib.gt_batch_export_spliced(
+                        handle, c.c_int64(bi),
+                        gstart_s.ctypes.data_as(i64p),
+                        splice.ctypes.data_as(i16p),
+                        pat_s.ctypes.data_as(i16p),
+                        vbits_s.ctypes.data_as(u8p),
+                        meta_s.ctypes.data_as(i32p),
+                    )
+                    entry["spliced"] = dict(
+                        gstart=gstart_s, splice=splice, patches=pat_s,
+                        vbits=vbits_s, meta=meta_s,
+                    )
+                per_bucket[int(r_len)] = entry
+            n_ovf = int(lib.gt_batch_n_overflows(handle))
+            overflow = np.empty((n_ovf, 2), dtype=np.int32)
+            if n_ovf:
+                lib.gt_batch_overflows(handle, overflow.ctypes.data_as(i32p))
+            n_dfb = int(lib.gt_batch_n_dense_fallbacks(handle))
+            dense_fb = np.empty((n_dfb, 3), dtype=np.int32)
+            if n_dfb:
+                lib.gt_batch_dense_fallbacks(
+                    handle, dense_fb.ctypes.data_as(i32p)
+                )
+        finally:
+            lib.gt_batch_free(handle)
     return (
         per_bucket,
         [(int(r), int(ci)) for r, ci in overflow],

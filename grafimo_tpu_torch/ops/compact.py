@@ -31,11 +31,12 @@ from typing import Optional
 
 import torch
 
-from grafimo_tpu_torch import kernels
+from grafimo_tpu_torch import kernels, spans
 
 # launches of the CUDA kernel / calls of the plain version since the
 # last reset_counts()
 COUNTS = {"kernel": 0, "plain": 0}
+spans.register("compact", COUNTS)
 
 
 def reset_counts() -> None:

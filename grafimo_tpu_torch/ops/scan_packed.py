@@ -23,13 +23,14 @@ and plain call, ``fused`` the launches that also counted.
 
 import torch
 
-from grafimo_tpu_torch import kernels
+from grafimo_tpu_torch import kernels, spans
 from grafimo_tpu_torch.ops.hist import bincount
 from grafimo_tpu_torch.ops.pack import FLAG_N, FLAG_PAD, packed_width
 
 # launches of the CUDA kernel / calls of the plain versions since the
 # last reset_counts(); "fused": launches that counted into a histogram
 COUNTS = {"kernel": 0, "plain": 0, "fused": 0}
+spans.register("scan_packed", COUNTS)
 
 
 def reset_counts() -> None:

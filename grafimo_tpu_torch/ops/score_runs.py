@@ -52,7 +52,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from grafimo_tpu_torch import kernels
+from grafimo_tpu_torch import kernels, spans
 from grafimo_tpu_torch.utils.constants import RANGE
 from grafimo_tpu_torch.ops.compact import (
     compact_hits,
@@ -139,6 +139,14 @@ _WORD_MASK = 0xFFFFFFFF
 _MAX_PWM_ENTRY = 1020  # the reference's kernel bound (pwms_to_conv_kernel)
 
 
+def uploaded(t: torch.Tensor) -> torch.Tensor:
+    """``t``, just made from host memory, with its bytes added to the
+    call's ``h2d_bytes`` when it lives on a card (0 on the CPU, where
+    ``torch.as_tensor`` shares the host buffer)."""
+    spans.count("h2d_bytes", t.nbytes if t.device.type != "cpu" else 0)
+    return t
+
+
 def pwm_lut_from_kernel(pwm_kernel: np.ndarray, device) -> torch.Tensor:
     """The reference's ``(k, 4, M)`` f32 kernel (:func:`pwms_to_conv_kernel`)
     as the port's ``(k, 4, M)`` int32 lookup table on ``device``.  Raises
@@ -153,7 +161,7 @@ def pwm_lut_from_kernel(pwm_kernel: np.ndarray, device) -> torch.Tensor:
             f"PWM kernel entries outside [0, {_MAX_PWM_ENTRY}]: "
             f"[{kern.min()}, {kern.max()}]"
         )
-    return torch.as_tensor(kern.astype(np.int32), device=device)
+    return uploaded(torch.as_tensor(kern.astype(np.int32), device=device))
 
 
 def genome_planes_to_device(codes4: np.ndarray, nplane, device):
@@ -161,9 +169,9 @@ def genome_planes_to_device(codes4: np.ndarray, nplane, device):
     (``runscan._resident_genome``) as int64 tensors holding the same
     unsigned values; ``nplane`` may be None (no N bases)."""
     def put(words):
-        return torch.as_tensor(
+        return uploaded(torch.as_tensor(
             np.asarray(words, dtype=np.uint32).astype(np.int64), device=device
-        )
+        ))
 
     return put(codes4), (put(nplane) if nplane is not None else None)
 
@@ -282,6 +290,7 @@ def _clear_at_patches(plane: torch.Tensor, patches: torch.Tensor):
 # fused one ("fused"), and calls of the scores' plain version, since the
 # last reset_counts()
 COUNTS = {"kernel": 0, "fused": 0, "plain": 0}
+spans.register("score_runs", COUNTS)
 
 
 def reset_counts() -> None:

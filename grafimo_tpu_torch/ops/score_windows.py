@@ -35,6 +35,7 @@ from grafimo_tpu_torch.ops.score_runs import (  # noqa: F401  (re-exported)
     hist_size_for_width,
     pwm_lut_from_kernel,
     reverse_complement_pwm,
+    uploaded,
 )
 
 # --------------------------------------------------------------------------
@@ -78,6 +79,14 @@ def pwm_lut_from_flat(pwm_flat: np.ndarray, device) -> torch.Tensor:
 # scoring
 
 
+def _on(x, dtype, device) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor on ``device``; a copy from the host
+    counts in the call's ``h2d_bytes``."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    return uploaded(torch.as_tensor(x, dtype=dtype, device=device))
+
+
 def _score_packed_host(packed: np.ndarray, flags: np.ndarray,
                        lut: torch.Tensor, min_scores,
                        hist=None) -> torch.Tensor:
@@ -86,9 +95,9 @@ def _score_packed_host(packed: np.ndarray, flags: np.ndarray,
     into it in the same launch."""
     b, w8 = packed.shape
     buf = torch.from_numpy(np.concatenate([packed.reshape(-1), flags]))
-    buf = buf.to(lut.device)
+    buf = uploaded(buf.to(lut.device))
     args = (buf[: b * w8].view(b, w8), buf[b * w8 :], lut,
-            torch.as_tensor(min_scores, dtype=torch.int32, device=lut.device))
+            _on(min_scores, torch.int32, lut.device))
     if hist is None:
         return score_packed(*args)
     return score_packed_hist(*args, hist)
@@ -147,8 +156,7 @@ def score_and_histogram_packed(
     hist = torch.zeros((hist_size, lut.shape[2]), dtype=torch.int64,
                        device=dev)
     scores = score_packed_hist(
-        torch.as_tensor(packed, dtype=torch.uint8, device=dev),
-        torch.as_tensor(flags, dtype=torch.uint8, device=dev), lut,
-        torch.as_tensor(min_scores, dtype=torch.int32, device=dev), hist,
+        _on(packed, torch.uint8, dev), _on(flags, torch.uint8, dev), lut,
+        _on(min_scores, torch.int32, dev), hist,
     )
     return scores, hist.to(torch.int32)

@@ -16,6 +16,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import pandas as pd
 
+from grafimo_tpu_torch.spans import span
 from grafimo_tpu_torch.utils.constants import DEFAULT_OUTDIR, PHASE, SOURCE, TP
 
 
@@ -43,13 +44,16 @@ def write_results(
         prefix = "_".join(["grafimo_out", motif_id])
     else:
         prefix = "grafimo_out"
-    results.to_csv(
-        os.path.join(outdir, ".".join([prefix, "tsv"])),
-        sep="\t",
-        encoding="utf-8",
-    )
-    results.to_html(os.path.join(outdir, ".".join([prefix, "html"])))
-    write_gff3(os.path.join(outdir, prefix), results, no_qvalue)
+    with span("report_tsv_s"):
+        results.to_csv(
+            os.path.join(outdir, ".".join([prefix, "tsv"])),
+            sep="\t",
+            encoding="utf-8",
+        )
+    with span("report_html_s"):
+        results.to_html(os.path.join(outdir, ".".join([prefix, "html"])))
+    with span("report_gff_s"):
+        write_gff3(os.path.join(outdir, prefix), results, no_qvalue)
     if top_graphs > 0:
         regions: List[str] = []
         for r in results["sequence_name"].tolist():

@@ -47,7 +47,7 @@ from grafimo_tpu_torch.graph.runs import (
     reconstruct_hits_batch,
     region_runs,
 )
-from grafimo_tpu_torch import kernels
+from grafimo_tpu_torch import kernels, spans
 from grafimo_tpu_torch.assemble import (
     backbone_hits,
     prepare_run,
@@ -77,6 +77,7 @@ from grafimo_tpu_torch.ops.score_runs import (
     spliced_rows,
     strided_rows,
     unpack_hitbits,
+    uploaded,
 )
 
 BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
@@ -119,6 +120,7 @@ SCAN_FLUSH_BYTES = 1 << 30
 # "indices", a block with more than SCAN_SMALLK hits; "bits", a block
 # with more than SCAN_TOPK; "hist", the histogram, once per device
 READS = {"flush": 0, "indices": 0, "bits": 0, "hist": 0}
+spans.register("reads", READS)
 
 
 def reset_reads() -> None:
@@ -510,6 +512,7 @@ def _native_batcher():
         return None
 
 
+@spans.span("batching_s")
 def batch_runs(
     region_runs_list: List[RegionRuns], k: int, buckets=BUCKETS,
     threads: int = 0, resident: bool = True,
@@ -948,7 +951,7 @@ class RunScanResult:
 
 
 def _put(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(x), device=device)
+    return uploaded(torch.as_tensor(np.ascontiguousarray(x), device=device))
 
 
 def _genome_on(graph: SiteGraph, device: torch.device):
@@ -1064,7 +1067,19 @@ def scan_batches(
     block's hits by its tier (``SCAN_SMALLK``, ``SCAN_TOPK``; reference
     ``:1427-1469, 1686-1710``).  Hit rows map back through ``lo +
     block_start + row``.  A device may be listed more than once.
+    The call is the span ``scan_s``; its seconds are the result's
+    ``scoring_time``.
     """
+    with spans.span("scan_s") as timed:
+        res = _scan(batches, pwm_kernel, min_scores, cutoffs, k, hist_size,
+                    devices, progress)
+    res.scoring_time = timed.seconds
+    return res
+
+
+def _scan(batches, pwm_kernel, min_scores, cutoffs, k, hist_size, devices,
+          progress) -> RunScanResult:
+    """The scan of :func:`scan_batches`."""
     devs = _as_devices(devices)
     smallk, topk, flush_slices = SCAN_SMALLK, SCAN_TOPK, SCAN_FLUSH_SLICES
     m = pwm_kernel.shape[-1]
@@ -1098,7 +1113,7 @@ def scan_batches(
             )
     mins_i64 = min_scores.astype(np.int64)
     hits: List[Tuple[Tuple[str, int], int, int]] = []
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # the progress line's clock
     hist_host = np.zeros((hist_size, m), dtype=np.int64)
 
     def _absorb_comp(comp: np.ndarray) -> None:
@@ -1232,12 +1247,10 @@ def scan_batches(
     READS["hist"] += len(on)
     if progress and sys.stderr.isatty():
         sys.stderr.write("\n")
-    dt = time.perf_counter() - t0
     return RunScanResult(
         hists=hist_host,
         hits=hits,
         n_windows_per_col=hist_host.sum(axis=0),
-        scoring_time=dt,
     )
 
 
@@ -1292,10 +1305,9 @@ def _scan_and_assemble(
     res.hits.sort()
     rank, n_proc = cluster.rank_and_size()
     if n_proc > 1:
-        t0 = time.perf_counter()
-        res.hists = cluster.allreduce_hist(res.hists)
-        res.n_windows_per_col = res.hists.sum(axis=0)
-        t_reduce = time.perf_counter() - t0
+        with spans.span("hist_allreduce_s") as reduce:
+            res.hists = cluster.allreduce_hist(res.hists)
+            res.n_windows_per_col = res.hists.sum(axis=0)
     # scanned-work counters, reference format (score_sequences.py:202-203,
     # counting one row per strand like the reference's TSV rows)
     n_seqs = int(_motif_hist(res.hists, col_meta, 0).sum())
@@ -1312,13 +1324,13 @@ def _scan_and_assemble(
         print(_format_wire_stats(batch_wire_stats(batches, k)))
     per_motif = _assemble_columns(res, motifs, by_key, col_meta, k)
     if n_proc > 1:
-        t0 = time.perf_counter()
-        per_motif = _merge_rows(cluster.allgather_object(per_motif))
+        with spans.span("row_gather_s") as gather:
+            per_motif = _merge_rows(cluster.allgather_object(per_motif))
         if verbose:
             print(
                 f"cluster: rank {rank}/{n_proc}, histogram all-reduce "
-                f"{t_reduce:.4f}s, report-row gather "
-                f"{time.perf_counter() - t0:.4f}s"
+                f"{reduce.seconds:.4f}s, report-row gather "
+                f"{gather.seconds:.4f}s"
             )
     return _build_reports(
         res, per_motif, motifs, col_meta, lookups, threshold, no_qvalue,
@@ -1353,6 +1365,7 @@ def _hit_fields(rr: RegionRuns, ref: Tuple[int, int], offs, k: int):
     return reconstruct_hits_batch(rr.graph, rr.get_run(ref), offs, k)
 
 
+@spans.span("hit_assembly_s")
 def _assemble_columns(res, motifs, by_key, col_meta, k):
     """The per-motif report columns of every hit (coordinates,
     host-rescored score, sequence, frequency, ref flag) and its global
@@ -1409,6 +1422,7 @@ def _assemble_columns(res, motifs, by_key, col_meta, k):
     return per_motif
 
 
+@spans.span("statistics_s")
 def _build_reports(
     res, per_motif, motifs, col_meta, lookups, threshold, no_qvalue, qval_t,
     recomb,

@@ -12,7 +12,6 @@ DataFrame, is the reference's host code line for line, so rows reach the
 non-stable sort in the reference's order.
 """
 
-import time
 from dataclasses import dataclass
 from typing import Iterable, Optional
 
@@ -20,6 +19,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from grafimo_tpu_torch import spans
 from grafimo_tpu_torch.models.motif import Motif
 from grafimo_tpu_torch.models.pvalue import PvalueLookup
 from grafimo_tpu_torch.ops.qvalue import qvalues_from_histogram
@@ -29,6 +29,7 @@ from grafimo_tpu_torch.ops.score_windows import (
     pwms_to_flat,
     score_and_accumulate,
 )
+from grafimo_tpu_torch.ops.score_runs import uploaded
 from grafimo_tpu_torch.windows import WindowBatch
 
 # device-batch granularity: windows are scored in chunks of this many rows
@@ -63,8 +64,8 @@ def compute_results(
     if stats is None:
         stats = ScanStats()
     lut = pwm_lut_from_flat(pwms_to_flat([motif.score_matrix]), device)
-    min_scores = torch.tensor([motif.min_score], dtype=torch.int32,
-                              device=device)
+    min_scores = uploaded(torch.tensor([motif.min_score], dtype=torch.int32,
+                                       device=device))
     hist_size = hist_size_for_width(motif.width)
     # summed on the device by the scoring launches, read back once after
     # the last chunk
@@ -72,26 +73,27 @@ def compute_results(
 
     kept_batches = []
     kept_scores = []
-    for batch in batches:
-        if no_reverse:
-            keep = np.array([s != "-" for s in batch.strands], dtype=bool)
-            if not keep.all():
-                batch = batch.select(keep)
-        if len(batch) == 0:
-            continue
-        parts = []
-        for lo in range(0, len(batch), CHUNK):
-            hi = min(lo + CHUNK, len(batch))
-            t0 = time.perf_counter()
-            scores = score_and_accumulate(
-                batch.codes[lo:hi], lut, min_scores, hist_dev
-            )
-            parts.append(scores[:, 0].cpu().numpy().astype(np.int64))
-            stats.scoring_time += time.perf_counter() - t0
-        stats.seqs_scanned += len(batch)
-        stats.nucs_scanned += len(batch) * motif.width
-        kept_batches.append(batch)
-        kept_scores.append(np.concatenate(parts))
+    with spans.span("scan_s") as scoring:
+        for batch in batches:
+            if no_reverse:
+                keep = np.array([s != "-" for s in batch.strands],
+                                dtype=bool)
+                if not keep.all():
+                    batch = batch.select(keep)
+            if len(batch) == 0:
+                continue
+            parts = []
+            for lo in range(0, len(batch), CHUNK):
+                hi = min(lo + CHUNK, len(batch))
+                scores = score_and_accumulate(
+                    batch.codes[lo:hi], lut, min_scores, hist_dev
+                )
+                parts.append(scores[:, 0].cpu().numpy().astype(np.int64))
+            stats.seqs_scanned += len(batch)
+            stats.nucs_scanned += len(batch) * motif.width
+            kept_batches.append(batch)
+            kept_scores.append(np.concatenate(parts))
+    stats.scoring_time += scoring.seconds
 
     if not kept_batches:
         raise ValueError(

@@ -12,7 +12,6 @@ why.
 
 import contextlib
 import os
-import time
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -27,6 +26,7 @@ from grafimo_tpu_torch.models.motif import MotifSet
 from grafimo_tpu_torch.models.parse import load_motifs
 from grafimo_tpu_torch.report.writer import print_results, write_results
 from grafimo_tpu_torch.utils.constants import DEFAULT_OUTDIR
+from grafimo_tpu_torch import spans
 from grafimo_tpu_torch.device import check_deps
 from grafimo_tpu_torch.parallel import cluster
 
@@ -54,11 +54,20 @@ def graph_filename(outdir: str, prefix: str, chrom: str) -> str:
 
 def buildvg(workflow: BuildVG) -> List[str]:
     """Build per-chromosome site graphs; returns the written graph paths
-    (``grafimo_tpu/workflows.py:74-128``).
+    (``grafimo_tpu/workflows.py:74-128``).  ``--verbose`` ends with the
+    call's phase table (``spans.table``).
 
     ``--export`` raises: the reference's buildvg calls an
     ``_export_graph`` that its module does not define
     (``grafimo_tpu/workflows.py:113,120``; ROADMAP C4)."""
+    with spans.call("buildvg_s"):
+        written = _build_graphs(workflow)
+    if workflow.verbose:
+        print(spans.table(spans.last_call()))
+    return written
+
+
+def _build_graphs(workflow: BuildVG) -> List[str]:
     workflow.validate()
     if workflow.export:
         raise NotPortedError(
@@ -83,7 +92,6 @@ def buildvg(workflow: BuildVG) -> List[str]:
                 f"chromosome {chrom} not found in "
                 f"{workflow.reference_genome}"
             )
-        start = time.time()
         name = chrom
         if workflow.namemap:
             name = workflow.namemap.get(chrom, chrom)
@@ -95,16 +103,19 @@ def buildvg(workflow: BuildVG) -> List[str]:
                   f"(use --reindex to rebuild)")
             written.append(path)
             continue
-        records, n_hap = read_vcf_records(workflow.vcf, chrom)
-        graph = build_graph(chrom, seqs[chrom], records, n_hap=n_hap)
-        graph.save(path)
+        with spans.span("vcf_read_s"):
+            records, n_hap = read_vcf_records(workflow.vcf, chrom)
+        with spans.span("graph_build_s"):
+            graph = build_graph(chrom, seqs[chrom], records, n_hap=n_hap)
+        with spans.span("graph_save_s"):
+            graph.save(path)
         written.append(path)
         if workflow.verbose:
             print(
                 f"graph for {chrom}: {graph.n_nodes} nodes, "
                 f"{len(graph.sites)} sites, "
                 f"{graph.haplo.n_hap if graph.haplo else 0} haplotypes "
-                f"({time.time() - start:.2f}s) -> {path}"
+                f"-> {path}"
             )
     return written
 
@@ -226,6 +237,7 @@ def _ensure_haplotypes(
     return rebuilt
 
 
+@spans.span("graph_load_s")
 def _load_graphs(
     workflow: Findmotif, chroms_in_bed: List[str]
 ) -> Dict[str, Tuple[str, SiteGraph]]:
@@ -299,10 +311,11 @@ def _scan_cache_path(workflow: Findmotif, regions, width: int) -> str:
 
 @contextlib.contextmanager
 def _profiled(profile_dir: str, devices: Sequence[torch.device], rank: int):
-    """``torch.profiler`` over the enclosed phase, CPU and (when a device
+    """``torch.profiler`` over the enclosed call, CPU and (when a device
     is a card) CUDA activities, written to ``profile_dir`` as one Chrome
     trace per process, which TensorBoard and Perfetto open (reference
-    ``workflows.py:437-449, 552-554``)."""
+    ``workflows.py:437-449, 552-554``, which traces the scan alone).  The
+    call's spans show in it under their names."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -328,7 +341,6 @@ def _scan_runs(workflow: Findmotif, motif_set: MotifSet, regions, graphs,
 
     results: Dict[str, object] = {}
     for width in sorted(motif_set.widths):
-        t0 = time.time()
         region_runs_list = []
         for chrom, (display, graph) in graphs.items():
             region_runs_list.extend(
@@ -347,14 +359,12 @@ def _scan_runs(workflow: Findmotif, motif_set: MotifSet, regions, graphs,
                 n_runs = sum(len(r.payloads) for r in materialised)
                 print(
                     f"width {width}: {n_runs} runs over "
-                    f"{len(region_runs_list)} regions in "
-                    f"{time.time() - t0:.2f}s"
+                    f"{len(region_runs_list)} regions"
                 )
             else:
                 print(
                     f"width {width}: {len(region_runs_list)} regions "
-                    f"prepared (native batch pipeline) in "
-                    f"{time.time() - t0:.2f}s"
+                    f"prepared (native batch pipeline)"
                 )
         dfs = compute_results_runs(
             motif_set.by_width(width),
@@ -377,7 +387,8 @@ def _scan_windows(workflow: Findmotif, motif_set: MotifSet, regions,
                   graphs, device: torch.device) -> Dict[str, object]:
     """The per-window engine: every region's windows on both strands,
     then one scoring pass per motif (``grafimo_tpu/workflows.py:
-    518-551``)."""
+    518-551``).  A width's extraction is the span ``batching_s``, a
+    motif's scoring the span ``scan_s``."""
     from grafimo_tpu_torch.graph.extract import extract_region
     from grafimo_tpu_torch.scan import ScanStats, compute_results
 
@@ -385,21 +396,21 @@ def _scan_windows(workflow: Findmotif, motif_set: MotifSet, regions,
     batches_per_width = {}
     for width in sorted(motif_set.widths):
         batches = []
-        t0 = time.time()
-        for chrom, (display, graph) in graphs.items():
-            for start, stop in regions.get(chrom, []):
-                batch = extract_region(
-                    graph, start, stop, width, chrom_display=display,
-                    both_strands=True,
-                )
-                if len(batch):
-                    batches.append(batch)
+        with spans.span("batching_s") as extracting:
+            for chrom, (display, graph) in graphs.items():
+                for start, stop in regions.get(chrom, []):
+                    batch = extract_region(
+                        graph, start, stop, width, chrom_display=display,
+                        both_strands=True,
+                    )
+                    if len(batch):
+                        batches.append(batch)
         batches_per_width[width] = batches
         if workflow.verbose:
             n = sum(len(b) for b in batches)
             print(
                 f"width {width}: extracted {n} candidate windows in "
-                f"{time.time() - t0:.2f}s"
+                f"{extracting.seconds:.2f}s"
             )
     for motif in motif_set:
         stats = ScanStats()
@@ -429,7 +440,11 @@ def findmotif(workflow: Findmotif,
     """Scan the variation graph(s) for motif occurrences on ``devices``
     (the run engine splits each slice over all of them, the window engine
     runs on the first); returns the written report directories (empty for
-    ``--text-only`` and on every rank but 0)."""
+    ``--text-only`` and on every rank but 0).
+
+    The call, from its banner to its last report, is the span
+    ``findmotif_s`` (``spans.call``); ``--profile DIR`` traces all of it,
+    on every rank, and ``--verbose`` ends with its phase table."""
     workflow.validate()
     devices = list(devices)
     # multi-host: join the process group before any device work; every
@@ -449,17 +464,29 @@ def findmotif(workflow: Findmotif,
             "partial report with local q-values (ROADMAP C6); use the "
             "default --engine runs for a multi-process scan"
         )
+    with (_profiled(workflow.profile_dir, devices, rank)
+          if workflow.profile_dir else contextlib.nullcontext()):
+        with spans.call("findmotif_s"):
+            outdirs = _find(workflow, devices, rank, n_proc)
+    if workflow.verbose:
+        print(spans.table(spans.last_call()))
+    return outdirs
+
+
+def _find(workflow: Findmotif, devices: List[torch.device], rank: int,
+          n_proc: int) -> List[str]:
     if rank == 0:
         print_welcome()
         check_deps(devices)
     motif_set = MotifSet()
-    for motif_file in workflow.motifs:
-        motif_set.add(
-            load_motifs(
-                motif_file, workflow.bgfile, workflow.pseudo,
-                workflow.no_reverse,
+    with spans.span("motif_processing_s"):
+        for motif_file in workflow.motifs:
+            motif_set.add(
+                load_motifs(
+                    motif_file, workflow.bgfile, workflow.pseudo,
+                    workflow.no_reverse,
+                )
             )
-        )
     print(f"Read {len(motif_set)} motif(s); widths: {sorted(motif_set.widths)}")
     regions, region_num = read_bed_regions(workflow.bedfile)
     if rank == 0:
@@ -478,33 +505,31 @@ def findmotif(workflow: Findmotif,
                 f"process {rank}/{n_proc}: scanning "
                 f"{len(mine)}/{len(flat)} regions"
             )
-    with (_profiled(workflow.profile_dir, devices, rank)
-          if workflow.profile_dir else contextlib.nullcontext()):
-        if workflow.engine == "runs":
-            results = _scan_runs(workflow, motif_set, regions, graphs,
-                                 devices)
-        else:
-            results = _scan_windows(workflow, motif_set, regions, graphs,
-                                    devices[0])
+    if workflow.engine == "runs":
+        results = _scan_runs(workflow, motif_set, regions, graphs, devices)
+    else:
+        results = _scan_windows(workflow, motif_set, regions, graphs,
+                                devices[0])
     if rank != 0:
         return []
     outdirs = []
     chrom_graphs = {d: g for (d, g) in graphs.values()}
-    for motif in motif_set:
-        df = results[motif.motif_id]
-        if workflow.text_only:
-            print_results(df)
-        else:
-            outdirs.append(
-                write_results(
-                    df,
-                    motif.motif_id,
-                    len(motif_set),
-                    workflow.outdir,
-                    no_qvalue=workflow.no_qvalue,
-                    top_graphs=workflow.top_graphs,
-                    graphs=chrom_graphs,
-                    verbose=workflow.verbose,
+    with spans.span("report_write_s"):
+        for motif in motif_set:
+            df = results[motif.motif_id]
+            if workflow.text_only:
+                print_results(df)
+            else:
+                outdirs.append(
+                    write_results(
+                        df,
+                        motif.motif_id,
+                        len(motif_set),
+                        workflow.outdir,
+                        no_qvalue=workflow.no_qvalue,
+                        top_graphs=workflow.top_graphs,
+                        graphs=chrom_graphs,
+                        verbose=workflow.verbose,
+                    )
                 )
-            )
     return outdirs

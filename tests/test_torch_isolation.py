@@ -4,7 +4,11 @@ imports with both blocked, and each host module the port copied from the
 reference is pinned to its original.
 
 A copy may differ from its original only by the package name in its
-import lines (``from grafimo_tpu.x`` -> ``from grafimo_tpu_torch.x``).
+import lines (``from grafimo_tpu.x`` -> ``from grafimo_tpu_torch.x``)
+and, in the three copies that open the port's phase spans
+(``grafimo_tpu_torch/spans.py``), by those spans: there the syntax trees
+are compared with each ``with span(...)`` block taken as its body and
+the import of ``span`` dropped.
 Two places that look as if they needed more need nothing: the native
 loader's ``RunPayload`` import (``native/__init__.py:208``) becomes the
 port's ``grafimo_tpu_torch.runscan`` by that rename, and its build
@@ -54,6 +58,10 @@ COPIES = [
     "native/__init__.py", "native/graphite.cpp", "native/vcfio.cpp",
 ]
 
+# copies that open spans
+INSTRUMENTED = ("graph/sitegraph.py", "native/__init__.py",
+                "report/writer.py")
+
 _IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)grafimo_tpu(?=[.\s])",
                           re.M)
 
@@ -61,6 +69,28 @@ _IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)grafimo_tpu(?=[.\s])",
 def _renamed(text: str) -> str:
     """The reference's text with its package renamed in import lines."""
     return _IMPORT_LINE.sub(r"\1grafimo_tpu_torch", text)
+
+
+class _Unspanned(ast.NodeTransformer):
+    """A module's tree without the port's spans: a ``with span(...)``
+    block becomes its body and ``from grafimo_tpu_torch.spans import``
+    goes."""
+
+    def visit_With(self, node):
+        self.generic_visit(node)
+        if all(isinstance(i.context_expr, ast.Call)
+               and isinstance(i.context_expr.func, ast.Name)
+               and i.context_expr.func.id == "span" for i in node.items):
+            return node.body
+        return node
+
+    def visit_ImportFrom(self, node):
+        return None if node.module == "grafimo_tpu_torch.spans" else node
+
+
+def _unspanned(text: str) -> str:
+    """``text``'s syntax tree without spans."""
+    return ast.dump(_Unspanned().visit(ast.parse(text)))
 
 
 def _imported_names(tree):
@@ -130,7 +160,24 @@ def test_copy_pinned_to_reference(rel):
     got = (PORT_DIR / rel).read_text()
     if rel.endswith(".py"):
         want = _renamed(want)
+    if rel in INSTRUMENTED:
+        got, want = _unspanned(got), _unspanned(want)
     assert got == want, f"{rel} drifted from grafimo_tpu/{rel}"
+
+
+def test_rewritten_loaders_match_reference(tmp_path):
+    """A saved graph loads through the port's ``SiteGraph.load``, whose
+    member reads open spans, as through the reference's."""
+    port, ref = _host("grafimo_tpu_torch"), _host("grafimo_tpu")
+    path = str(tmp_path / "s.gvt.npz")
+    _seeded_graph(port).save(path)
+    got, want = port.SiteGraph.load(path), ref.SiteGraph.load(path)
+    assert got.haplo is not None and want.haplo is not None
+    for name in ("n_hap", "words", "site_allele_rows", "alt_bits"):
+        _same(getattr(got.haplo, name), getattr(want.haplo, name), name)
+    got.haplo = want.haplo = None
+    _same(got, want, "graph")
+    assert len(got.sites) > 10 and got.elements
 
 
 @pytest.mark.parametrize("name", ["get_parser", "args_to_workflow"])
@@ -173,6 +220,7 @@ def _host(pkg):
 
     return types.SimpleNamespace(
         build_graph=mod("graph.sitegraph").build_graph,
+        SiteGraph=mod("graph.sitegraph").SiteGraph,
         VcfRecord=mod("io.vcf").VcfRecord,
         native=mod("native"),
     )
