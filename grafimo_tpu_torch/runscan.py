@@ -53,6 +53,7 @@ from grafimo_tpu_torch.assemble import (
     prepare_run,
     qvalue_table,
 )
+from grafimo_tpu_torch.flatgraph import flat_arrays
 from grafimo_tpu_torch.graph.sitegraph import SiteGraph
 from grafimo_tpu_torch.models.motif import Motif
 from grafimo_tpu_torch.models.pvalue import PvalueLookup
@@ -551,6 +552,9 @@ def batch_runs(
         ]
         for group in groups.values():
             try:
+                # the batcher's flat graph arrays, vectorised, into the
+                # cache that the pinned native._flatten_graph reads first
+                flat_arrays(group[0].graph)
                 per_bucket_native, overflow_pairs, dense_fallbacks = fn(
                     group[0].graph,
                     [(rr.start, rr.stop) for rr in group],
