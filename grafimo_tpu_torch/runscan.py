@@ -1447,9 +1447,10 @@ def _build_reports(
             qvalues = np.zeros(0, dtype=np.float64)
         if not no_qvalue and len(scores_int):
             # a motif with no hit row needs no q-value table
-            occupied, q = qvalue_table(
-                _motif_hist(res.hists, col_meta, mi), lookups[mi].pvalues
-            )
+            with spans.span("qvalue_tables_s"):
+                occupied, q = qvalue_table(
+                    _motif_hist(res.hists, col_meta, mi), lookups[mi].pvalues
+                )
             missing = scores_int[~np.isin(scores_int, occupied)]
             if len(missing):
                 # every hit's score must occupy its histogram bin; a miss
@@ -1513,7 +1514,15 @@ def compute_results_runs(
     min_scores = np.array(
         [motifs[mi].min_score for mi, _ in col_meta], dtype=np.int32
     )
-    lookups = [PvalueLookup(mt.pval_table) for mt in motifs]
+    # one pass serves both -t modes: the p < t score cutoff collects a
+    # superset of the q < t hits (q >= p under BH) and the exact
+    # q-values come from the same pass's histogram
+    with spans.span("pvalue_cutoffs_s"):
+        lookups = [PvalueLookup(mt.pval_table) for mt in motifs]
+        cutoffs = np.array(
+            [lookups[mi].score_cutoff(threshold) for mi, _ in col_meta],
+            dtype=np.int32,
+        )
 
     if cache_path and os.path.isfile(cache_path):
         batches, _keys = load_batches(cache_path)
@@ -1545,14 +1554,6 @@ def compute_results_runs(
             if verbose:
                 print(f"wrote scan checkpoint {cache_path}")
     by_key = {rr.key: rr for rr in region_runs_list}
-
-    # one pass serves both -t modes: the p < t score cutoff collects a
-    # superset of the q < t hits (q >= p under BH) and the exact
-    # q-values come from the same pass's histogram
-    cutoffs = np.array(
-        [lookups[mi].score_cutoff(threshold) for mi, _ in col_meta],
-        dtype=np.int32,
-    )
     return _scan_and_assemble(
         batches, motifs, region_runs_list, by_key, pwm_kernel,
         min_scores, cutoffs, col_meta, lookups, k, hist_size,

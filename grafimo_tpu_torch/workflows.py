@@ -24,7 +24,11 @@ from grafimo_tpu_torch.io.fasta import fasta_chrom_names, read_fasta
 from grafimo_tpu_torch.io.vcf import read_vcf_records
 from grafimo_tpu_torch.models.motif import MotifSet
 from grafimo_tpu_torch.models.parse import load_motifs
-from grafimo_tpu_torch.report.writer import print_results, write_results
+from grafimo_tpu_torch.report.writer import (
+    print_results,
+    write_gff3,
+    write_results,
+)
 from grafimo_tpu_torch.utils.constants import DEFAULT_OUTDIR
 from grafimo_tpu_torch import spans
 from grafimo_tpu_torch.device import check_deps
@@ -341,6 +345,7 @@ def _scan_runs(workflow: Findmotif, motif_set: MotifSet, regions, graphs,
 
     results: Dict[str, object] = {}
     for width in sorted(motif_set.widths):
+        spans.count("scan.width_passes")
         region_runs_list = []
         for chrom, (display, graph) in graphs.items():
             region_runs_list.extend(
@@ -395,6 +400,7 @@ def _scan_windows(workflow: Findmotif, motif_set: MotifSet, regions,
     results: Dict[str, object] = {}
     batches_per_width = {}
     for width in sorted(motif_set.widths):
+        spans.count("scan.width_passes")
         batches = []
         with spans.span("batching_s") as extracting:
             for chrom, (display, graph) in graphs.items():
@@ -514,11 +520,20 @@ def _find(workflow: Findmotif, devices: List[torch.device], rank: int,
         return []
     outdirs = []
     chrom_graphs = {d: g for (d, g) in graphs.values()}
+    if not workflow.text_only:
+        spans.count("report.motifs_written", 0)
+        spans.count("report.motifs_empty", 0)
     with spans.span("report_write_s"):
         for motif in motif_set:
             df = results[motif.motif_id]
             if workflow.text_only:
                 print_results(df)
+            elif len(df) == 0:
+                with spans.span("report_empty_s"):
+                    outdirs.append(_write_empty_report(
+                        df, motif.motif_id, len(motif_set), workflow
+                    ))
+                spans.count("report.motifs_empty")
             else:
                 outdirs.append(
                     write_results(
@@ -532,4 +547,30 @@ def _find(workflow: Findmotif, devices: List[torch.device], rank: int,
                         verbose=workflow.verbose,
                     )
                 )
+                spans.count("report.motifs_written")
     return outdirs
+
+
+def _write_empty_report(df, motif_id: str, motif_num: int,
+                        workflow: Findmotif) -> str:
+    """The report triple of a motif with no row: the header-only TSV,
+    HTML and GFF3 under the names ``write_results`` gives them.
+
+    The reference's writer raises on an empty frame, which ends a
+    many-motif run at its first motif without a hit and leaves the later
+    motifs without a report (ROADMAP C8).  The port writes the empty
+    triple, warns, and goes on; a report with rows is the writer's own."""
+    _warn(f"motif {motif_id}: no potential motif occurrence retrieved; "
+          "writing a report with no rows (ROADMAP C8)")
+    outdir = workflow.outdir
+    dirname_default = outdir == DEFAULT_OUTDIR
+    if dirname_default:
+        outdir = "_".join(["grafimo_out", str(os.getpid()), motif_id])
+    os.makedirs(outdir, exist_ok=True)
+    prefix = ("_".join(["grafimo_out", motif_id])
+              if not dirname_default and motif_num > 1 else "grafimo_out")
+    df.to_csv(os.path.join(outdir, f"{prefix}.tsv"), sep="\t",
+              encoding="utf-8")
+    df.to_html(os.path.join(outdir, f"{prefix}.html"))
+    write_gff3(os.path.join(outdir, prefix), df, workflow.no_qvalue)
+    return outdir

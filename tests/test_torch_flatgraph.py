@@ -162,8 +162,9 @@ def test_batch_runs_flattens_through_flat_arrays(input_dir, which, resident,
 def test_findmotif_flattens_each_graph_once(input_dir, toy, tmp_path,
                                             monkeypatch):
     """One call flattens its one graph through ``flat_arrays``; the
-    pinned loop only returns that cache; the call opens the same 34
-    spans as before, one of them ``graph_flatten_s``."""
+    pinned loop only returns that cache; the call opens 36 spans, one
+    of them ``graph_flatten_s`` (and one each of ``pvalue_cutoffs_s``
+    and ``qvalue_tables_s``: one width, one motif with rows)."""
     made, seen, opened = [], [], []
     real, pinned = runscan.flat_arrays, port_native._flatten_graph
     enter = spans.span.__enter__
@@ -189,4 +190,6 @@ def test_findmotif_flattens_each_graph_once(input_dir, toy, tmp_path,
     assert seen and all(s is flat for s in seen)
     assert rec["counts"]["graph_flatten.graphs"] == 1
     assert "graph_flatten_s" in rec["spans"]
-    assert len(opened) == 34 and opened.count("graph_flatten_s") == 1
+    assert len(opened) == 36 and opened.count("graph_flatten_s") == 1
+    assert opened.count("pvalue_cutoffs_s") == 1
+    assert opened.count("qvalue_tables_s") == 1

@@ -28,14 +28,18 @@ LAYERS = ("motif_processing_s", "graph_load_s", "batching_s", "scan_s",
 SUBPHASES = {
     "graph_load_s": ("graph_inflate_s",),
     "batching_s": ("graph_flatten_s", "native_batch_s"),
+    "statistics_s": ("qvalue_tables_s",),
     "report_write_s": ("report_tsv_s", "report_html_s", "report_gff_s"),
 }
-SPANS = ("findmotif_s", *LAYERS, *itertools.chain(*SUBPHASES.values()))
+# a width pass's p-value lookups and cutoffs, outside the layer spans
+SPANS = ("findmotif_s", *LAYERS, *itertools.chain(*SUBPHASES.values()),
+         "pvalue_cutoffs_s")
 REGISTERED = {"hist": hist.COUNTS, "compact": compact.COUNTS,
               "scan_packed": scan_packed.COUNTS,
               "score_runs": score_runs.COUNTS, "reads": runscan.READS}
-COUNTERS = ("h2d_bytes", *(
-    f"{p}.{k}" for p, d in REGISTERED.items() for k in d))
+COUNTERS = ("h2d_bytes", "scan.width_passes", "report.motifs_written",
+            "report.motifs_empty", *(
+                f"{p}.{k}" for p, d in REGISTERED.items() for k in d))
 
 
 @pytest.fixture(scope="module")
