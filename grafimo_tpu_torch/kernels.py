@@ -1,14 +1,15 @@
 """Build and bind the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``,
-one ``nvcc -c`` per source, all started together, and linked into one
-shared library with a plain C interface, named by a hash of the
+The CUDA sources under ``csrc/`` are compiled with ``nvcc`` for
+``sm_90a``, one ``nvcc -c`` per source, all started together, and linked
+into one shared library with a plain C interface, named by a hash of the
 sources, the header they share and the flags (as
 ``grafimo_tpu/native/__init__.py:29-51`` names its C++ library) and
 cached under ``grafimo_tpu_torch/_build/``.  The build
 runs at first use, never at import, so the CPU tests import every module
 on a host without ``nvcc``.  The library is bound with ``ctypes``:
-pointers and the stream cross as ``c_void_p``.
+pointers and the stream cross as ``c_void_p``.  ``csrc/tail_sums.cpp`` is
+host C++, built with ``g++`` by ``pvalues.py``.
 """
 
 import contextlib

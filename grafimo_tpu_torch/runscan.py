@@ -56,7 +56,7 @@ from grafimo_tpu_torch.assemble import (
 from grafimo_tpu_torch.flatgraph import flat_arrays
 from grafimo_tpu_torch.graph.sitegraph import SiteGraph
 from grafimo_tpu_torch.models.motif import Motif
-from grafimo_tpu_torch.models.pvalue import PvalueLookup
+from grafimo_tpu_torch.pvalues import PvalueLookup
 from grafimo_tpu_torch.report.results import apply_report_filters, build_results_df
 from grafimo_tpu_torch.device import split_rows
 from grafimo_tpu_torch.parallel import cluster

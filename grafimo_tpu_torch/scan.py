@@ -21,7 +21,7 @@ import torch
 
 from grafimo_tpu_torch import spans
 from grafimo_tpu_torch.models.motif import Motif
-from grafimo_tpu_torch.models.pvalue import PvalueLookup
+from grafimo_tpu_torch.pvalues import PvalueLookup
 from grafimo_tpu_torch.ops.qvalue import qvalues_from_histogram
 from grafimo_tpu_torch.ops.score_windows import (
     hist_size_for_width,

@@ -14,11 +14,12 @@ import grafimo_tpu.runscan as ref_rs
 import grafimo_tpu_torch.native as port_native
 import grafimo_tpu_torch.runscan as port_rs
 from grafimo_tpu.utils.constants import UNIF
-from grafimo_tpu_torch import assemble
+from grafimo_tpu_torch import assemble, pvalues
 from grafimo_tpu_torch.graph import runs as port_runs
 from grafimo_tpu_torch.ops.qvalue import qvalues_from_histogram
 
 from test_torch_runscan import PORT, REF
+from test_torch_tail_sums import jaspar_motifs
 
 torch.set_num_threads(1)
 
@@ -311,14 +312,22 @@ def _stair(step, n):
     return lambda s: 1.0 - (np.asarray(s) // step) / float(n)
 
 
+@pytest.fixture(scope="module")
+def jaspar28_table(tmp_path_factory):
+    (motif,) = jaspar_motifs(tmp_path_factory.mktemp("meme"), (28,))
+    return motif.pval_table
+
+
 QVALUE_CASES = ["random", "sparse", "ties", "stair", "one_bin", "all_zero",
-                "huge_counts", "above_one"]
+                "huge_counts", "above_one", "jaspar_width"]
 
 
 @pytest.mark.parametrize("case", QVALUE_CASES)
-def test_qvalue_table_matches_pinned_bitwise(case, ctcf_pvalues):
+def test_qvalue_table_matches_pinned_bitwise(case, ctcf_pvalues,
+                                             jaspar28_table):
     rng = np.random.default_rng(QVALUE_CASES.index(case))
     size, pv = 19001, ctcf_pvalues
+    pv_want = None  # the pinned function's p-values, where not ``pv``
     hist = np.zeros(size, np.int64)
     if case == "random":
         hist[rng.integers(0, size, 3000)] = rng.integers(1, 1000, 3000)
@@ -339,7 +348,18 @@ def test_qvalue_table_matches_pinned_bitwise(case, ctcf_pvalues):
     elif case == "above_one":  # not a p-value: drives the clip at 1
         hist[rng.integers(0, size, 300)] = rng.integers(1, 9, 300)
         pv = lambda s: 3.0 - np.asarray(s) / size  # noqa: E731
-    want = qvalues_from_histogram(hist, pv)
+    elif case == "jaspar_width":
+        # a width-28 motif's real table and thousands of occupied bins:
+        # the dense-cache lookup's lane tail sums against the pinned
+        # lookup's scalar ones
+        table = jaspar28_table
+        size = len(table)
+        hist = np.bincount(rng.choice(size, 200_000, p=table / table.sum()),
+                           minlength=size).astype(np.int64)
+        assert np.count_nonzero(hist) > 2000
+        pv = pvalues.PvalueLookup(table).pvalues
+        pv_want = PORT.PvalueLookup(table).pvalues
+    want = qvalues_from_histogram(hist, pv_want or pv)
     occupied, q = assemble.qvalue_table(hist, pv)
     assert occupied.dtype == np.int64 and q.dtype == np.float64
     got = _as_dict(occupied, q)
