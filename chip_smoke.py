@@ -114,9 +114,10 @@ raises and the script exits non-zero:
     ``findmotif``, on the card (one fused launch a slice block and
     nothing else) and on the CPU, TSV and GFF3 byte-identical; then the
     same regions scanned on the card in this process and their hits
-    assembled twice, by ``runscan._assemble_columns`` and on the route
-    it replaced (``_route_columns``), the report columns equal and both
-    times printed.
+    assembled twice, by ``runscan._assemble_columns`` and with every
+    backbone hit read off its region's whole backbone run, the route
+    ``assemble.backbone_hits`` replaced (``_route_columns``), the report
+    columns equal and both times printed.
 
 Phase 5's whole-chromosome run and phase 9's scans also check the
 device->host reads (``runscan.READS``): one per device and flush block of
@@ -1933,26 +1934,31 @@ def phase_many_motifs(torch, wd, gdir):
     return ladder, genome
 
 
-# what hit assembly caches on a graph: the pinned memos of graph/runs.py
-# and the per-graph arrays of grafimo_tpu_torch/assemble.py
+# what hit assembly memoises on a graph (graph/runs.py)
 GRAPH_CACHES = ("_cluster_cache", "_dense_delpref_cache", "_ref_node_arr",
-                "_site_deletable_arr", "_cluster_spans")
+                "_site_deletable_arr")
 
 
-def _route_columns(rs, res, by_key, motifs, col_meta, k, pinned):
+def _route_columns(rs, res, by_key, motifs, col_meta, k, backbone_run):
     """The report columns of ``res``'s hits from
-    ``runscan._assemble_columns``, on its own route or, with ``pinned``,
-    on the route it replaced: every hit's run rebuilt by the pinned
-    ``build_single_run`` (clusters by ``cluster_sites``, the backbone by
-    ``_build_backbone_run``) and read by ``reconstruct_hits_batch``.  The
-    graphs' caches and the regions' run caches are dropped first, so
-    each route pays for its own.  Returns ``(columns, seconds)``."""
+    ``runscan._assemble_columns``, on its own route or, with
+    ``backbone_run``, with each backbone hit read by
+    ``reconstruct_hits_batch`` off its region's whole backbone run
+    (``build_single_run`` -> ``_build_backbone_run``), the route that
+    ``assemble.backbone_hits`` replaced; every other hit takes the one
+    route.  The graphs' memos and the regions' run caches are dropped
+    first, so each route pays for its own.  Returns ``(columns,
+    seconds)``."""
     from grafimo_tpu_torch.graph.runs import (
         build_single_run,
         reconstruct_hits_batch,
     )
 
-    def pinned_fields(rr, ref, offs, k):
+    real = rs._hit_fields
+
+    def run_fields(rr, ref, offs, k):
+        if ref[0] != -1:
+            return real(rr, ref, offs, k)
         run = rr._run_cache.get(ref)
         if run is None:
             run = rr._run_cache[ref] = build_single_run(
@@ -1963,9 +1969,8 @@ def _route_columns(rs, res, by_key, motifs, col_meta, k, pinned):
     for rr in by_key.values():
         for name in GRAPH_CACHES:
             rr.graph.__dict__.pop(name, None)
-    real = rs._hit_fields
-    if pinned:
-        rs._hit_fields = pinned_fields
+    if backbone_run:
+        rs._hit_fields = run_fields
     try:
         t0 = time.perf_counter()
         cols = rs._assemble_columns(res, motifs, by_key, col_meta, k)
@@ -2009,12 +2014,12 @@ def _encode_assembly(torch, gdir, bed, card):
     old, t_old = _route_columns(rs, res, by_key, motifs, col_meta, k, True)
     if new != old:
         raise RuntimeError("ENCODE-shaped peak set: hit assembly differs "
-                           "between the pinned route and the new one")
+                           "between the backbone-run route and the new one")
     if not res.hits or not kinds["backbone"]:
         raise RuntimeError(f"ENCODE-shaped peak set: hits {kinds}; want "
                            f"backbone hits among them")
     log(f"ENCODE-shaped peak set, hit assembly of {len(res.hits)} raw hits "
-        f"{kinds}: new route {t_new:.3f}s, pinned route {t_old:.3f}s "
+        f"{kinds}: new route {t_new:.3f}s, backbone-run route {t_old:.3f}s "
         f"({t_old / max(t_new, 1e-9):.1f}x), columns equal ({card})")
 
 

@@ -27,9 +27,16 @@ Decomposition (per region, per width k):
 Together these partition the exact window set of the per-window enumerator
 (differentially tested).  Frequencies, coordinates, node paths and ref
 flags are reconstructed per *hit* from run metadata.
+
+The per-graph arrays behind the clusters and the runs (site deletable
+spans, the reference node of every base, a dense cluster's deletable
+prefix) are built here from whole-graph passes and memoised on the graph
+by the function that reads them.
 """
 
 from dataclasses import dataclass
+from itertools import chain
+from operator import attrgetter, itemgetter
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -84,37 +91,126 @@ def _site_deletable(site: Site) -> int:
     return max(0, span - min_len)
 
 
-def cluster_sites(
-    graph: SiteGraph, region_start: int, region_end: int, k: int
-) -> List[List[Site]]:
-    """Group region-relevant sites into window-disjoint clusters.
+def site_deletables(graph: SiteGraph) -> np.ndarray:
+    """:func:`_site_deletable` of every site, as an int64 array cached on
+    the graph."""
+    arr = getattr(graph, "_site_deletable_arr", None)
+    if arr is None:
+        starts, ends = graph.site_spans()
+        alleles = list(map(attrgetter("alleles"), graph.sites))
+        n_alleles = np.fromiter(map(len, alleles), dtype=np.int64,
+                                count=len(alleles))
+        lengths = np.fromiter(
+            map(len, chain.from_iterable(alleles)), dtype=np.int64,
+            count=int(n_alleles.sum()),
+        )
+        first = np.concatenate([[0], np.cumsum(n_alleles)[:-1]])
+        shortest = (np.minimum.reduceat(lengths, first) if len(alleles)
+                    else np.zeros(0, dtype=np.int64))
+        arr = np.maximum(ends - starts - shortest, 0)
+        graph._site_deletable_arr = arr
+    return arr
 
-    Memoised per (region, k) on the graph: lazy hit reconstruction calls
-    this once per hit-containing run and chromosome-scale regions hold
-    hundreds of thousands of sites.
-    """
+
+def cluster_breaks(
+    starts: np.ndarray, ends: np.ndarray, deletable: np.ndarray, k: int
+) -> List[int]:
+    """First-site indices of the clusters that the sites ``(starts, ends,
+    deletable)`` chain into.
+
+    Site ``i`` joins the open cluster when its gap to site ``i - 1`` is
+    below ``k + d + 1``, ``d`` the deletable sum of the cluster so far.
+    Since ``d >= 0``, only a gap of ``k + 1`` or more can break.  Up to
+    the first candidate that would not break if its predecessor did,
+    every candidate breaks (all of them where nothing is deletable, as
+    on a SNP-only graph); from there the candidates are walked in order
+    with the open cluster's deletable sum, until that sum exceeds every
+    later candidate's room."""
+    n = len(starts)
+    if n == 0:
+        return []
+    gap = starts[1:] - ends[:-1]
+    cand = np.flatnonzero(gap >= k + 1)
+    room = gap[cand] - (k + 1)
+    prefix = np.cumsum(deletable)  # prefix[i - 1] = deletable sum of [0, i)
+    at = prefix[cand]  # site cand + 1: sum over [0, cand + 1)
+    fails = np.flatnonzero(room < np.diff(at, prepend=0))
+    j = int(fails[0]) if len(fails) else len(cand)
+    breaks = [0] + (cand[:j] + 1).tolist()
+    opened = int(at[j - 1]) if j else 0  # deletable sum before the open cluster
+    later = np.maximum.accumulate(room[j:][::-1])[::-1]
+    for site, r, p, most in zip(
+        (cand[j:] + 1).tolist(), room[j:].tolist(), at[j:].tolist(),
+        later.tolist(),
+    ):
+        d = p - opened
+        if d > most:
+            break
+        if r >= d:
+            breaks.append(site)
+            opened = p
+    return breaks
+
+
+def _region_clusters(
+    graph: SiteGraph, region_start: int, region_end: int, k: int
+) -> Tuple[List[List[Site]], np.ndarray]:
+    """:func:`cluster_sites`' clusters and the graph's site index at which
+    each starts, with one past the last (int64), memoised on the graph
+    per (unclipped region, k)."""
     memo = getattr(graph, "_cluster_cache", None)
     if memo is None:
         memo = graph._cluster_cache = {}
     key = (region_start, region_end, k)
     cached = memo.get(key)
-    if cached is not None:
-        return cached
-    starts, ends = graph.site_spans()
-    i0 = int(np.searchsorted(ends, region_start, side="left"))
-    i1 = int(np.searchsorted(starts, region_end, side="right"))
-    sites = graph.sites[i0:i1]
-    clusters: List[List[Site]] = []
-    d_cur = 0
-    for s in sites:
-        if clusters and s.ref_start - clusters[-1][-1].ref_end < k + d_cur + 1:
-            clusters[-1].append(s)
-            d_cur += _site_deletable(s)
-        else:
-            clusters.append([s])
-            d_cur = _site_deletable(s)
-    memo[key] = clusters
-    return clusters
+    if cached is None:
+        starts, ends = graph.site_spans()
+        i0 = int(np.searchsorted(ends, region_start, side="left"))
+        i1 = int(np.searchsorted(starts, region_end, side="right"))
+        sites = graph.sites[i0:i1]
+        bounds = cluster_breaks(
+            starts[i0:i1], ends[i0:i1], site_deletables(graph)[i0:i1], k
+        ) + [len(sites)]
+        clusters = [sites[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+        cached = memo[key] = (clusters, i0 + np.array(bounds, np.int64))
+    return cached
+
+
+def cluster_sites(
+    graph: SiteGraph, region_start: int, region_end: int, k: int
+) -> List[List[Site]]:
+    """Group region-relevant sites into window-disjoint clusters: maximal
+    chains in which each site starts less than ``k + d + 1`` bases after
+    the previous one ends, ``d`` the deletable sum of the chain so far
+    (:func:`cluster_breaks`).
+
+    Memoised per (region, k) on the graph: lazy hit reconstruction calls
+    this once per hit-containing run and chromosome-scale regions hold
+    hundreds of thousands of sites.
+    """
+    return _region_clusters(graph, region_start, region_end, k)[0]
+
+
+def _cluster_del_prefix(
+    graph: SiteGraph, region_start: int, region_end: int, k: int, ci: int
+) -> List[int]:
+    """:func:`_del_prefix` of the region's cluster ``ci``, from
+    :func:`site_deletables`, memoised per cluster: the chaining rule
+    merges whole 1KGP chromosomes into one mega-cluster (330k sites at
+    10 Mbp), where an O(cluster) recompute per hit costs ~200 ms a
+    hit."""
+    memo = getattr(graph, "_dense_delpref_cache", None)
+    if memo is None:
+        memo = graph._dense_delpref_cache = {}
+    key = (region_start, region_end, k, ci)
+    del_pref = memo.get(key)
+    if del_pref is None:
+        bounds = _region_clusters(graph, region_start, region_end, k)[1]
+        a, b = bounds[ci : ci + 2]
+        del_pref = memo[key] = (
+            [0] + np.cumsum(site_deletables(graph)[a:b]).tolist()
+        )
+    return del_pref
 
 
 def _combinations(cluster: Sequence[Site]) -> Iterator[List[int]]:
@@ -328,16 +424,51 @@ def _build_cluster_run(
 def _ref_node_array(graph: SiteGraph) -> np.ndarray:
     """Whole-chromosome reference-path node id per base (cached on the
     graph): the segment/ref-allele sweep of the backbone builder, built
-    once instead of a binary search per emitted flank base."""
+    once instead of a binary search per emitted flank base.
+
+    The pieces (segments, then each site's ref-allele node over its
+    span) are painted in one ``np.repeat`` when they are disjoint and
+    inside the chromosome, as a graph's segments and sites are;
+    otherwise the sweep writes them in that order, later writes winning.
+    A site whose ref allele has no node writes nothing, or, where the
+    pieces are disjoint, the zeros it would leave."""
     arr = getattr(graph, "_ref_node_arr", None)
-    if arr is None:
-        arr = np.zeros(graph.length, dtype=np.int32)
+    if arr is not None:
+        return arr
+    seg = np.fromiter(
+        chain.from_iterable(graph.segments), dtype=np.int64,
+        count=3 * len(graph.segments),
+    ).reshape(-1, 3)
+    s_start, s_end = graph.site_spans()
+    s_node = np.fromiter(
+        map(itemgetter(0), map(attrgetter("allele_nodes"), graph.sites)),
+        dtype=np.int64, count=len(graph.sites),
+    )
+    keep = s_end > s_start
+    lo = np.concatenate([seg[:, 0], s_start[keep]])
+    hi = np.concatenate([seg[:, 1], s_end[keep]])
+    node = np.concatenate([seg[:, 2], s_node[keep]])
+    filled = hi > lo
+    lo, hi, node = lo[filled], hi[filled], node[filled]
+    order = np.argsort(lo, kind="stable")
+    lo, hi, node = lo[order], hi[order], node[order]
+    L = graph.length
+    if len(lo) and (lo[0] < 0 or hi.max() > L or (lo[1:] < hi[:-1]).any()):
+        arr = np.zeros(L, dtype=np.int32)
         for s, e, nid in graph.segments:
             arr[s:e] = nid
         for site in graph.sites:
             if site.ref_end > site.ref_start and site.allele_nodes[0]:
                 arr[site.ref_start : site.ref_end] = site.allele_nodes[0]
-        graph._ref_node_arr = arr
+    else:
+        # pieces alternate with the (possibly empty) gaps around them
+        edges = np.empty(2 * len(lo) + 2, dtype=np.int64)
+        edges[0], edges[-1] = 0, L
+        edges[1:-1:2], edges[2:-1:2] = lo, hi
+        values = np.zeros(2 * len(lo) + 1, dtype=np.int32)
+        values[1::2] = node
+        arr = np.repeat(values, np.diff(edges))
+    graph._ref_node_arr = arr
     return arr
 
 
@@ -731,17 +862,9 @@ def build_single_run(
         cluster = clusters[ci]
         a_rem, ordinal = divmod(x_idx, DENSE_COMBO_STRIDE)
         anchor = blk * DENSE_ANCHOR_BLOCK + a_rem
-        # memoise the deletable prefix per cluster: the chaining rule
-        # merges whole 1KGP chromosomes into one mega-cluster (330k
-        # sites at 10 Mbp), and an O(cluster) recompute per hit made
-        # reconstruction ~200 ms/hit (measured round 5)
-        memo = getattr(graph, "_dense_delpref_cache", None)
-        if memo is None:
-            memo = graph._dense_delpref_cache = {}
-        dpk = (region_start, region_end, k, ci)
-        del_pref = memo.get(dpk)
-        if del_pref is None:
-            del_pref = memo[dpk] = _del_prefix(cluster)
+        del_pref = _cluster_del_prefix(
+            graph, region_start, region_end, k, ci
+        )
         l, j = _anchor_bounds(cluster, del_pref, anchor, k)
         ctx = anchor - l
         sub_full = list(cluster[l : j + 1])

@@ -13,10 +13,12 @@ import hashlib
 import os
 import subprocess
 import threading
+from itertools import chain
+from operator import attrgetter
 
 import numpy as np
 
-from grafimo_tpu_torch.spans import span
+from grafimo_tpu_torch.spans import count, span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [
@@ -159,43 +161,48 @@ for _i, _ch in enumerate("ACGT"):
     _CODE_LUT[ord(_ch.lower())] = _i
 
 
+def _codes(text: str) -> np.ndarray:
+    """``text``'s bases as 0-3 codes, anything else 4 (uint8)."""
+    return _CODE_LUT[np.frombuffer(text.encode("ascii"), np.uint8)]
+
+
+def _exclusive_cumsum(lengths: np.ndarray) -> np.ndarray:
+    out = np.zeros(len(lengths), dtype=np.int64)
+    np.cumsum(lengths[:-1], dtype=np.int64, out=out[1:])
+    return out
+
+
 def _flatten_graph(graph):
     """Flat array view of a SiteGraph for the C++ engine (cached on the
-    graph object)."""
+    graph object): the codes of ``seq``; ``site_start`` and ``site_end``
+    (the graph's ``site_spans``); ``site_aoff`` and ``site_nall``, each
+    site's first allele and allele count; ``allele_off`` and
+    ``allele_len`` into ``blob``, the codes of every allele in order.
+    Built in whole-graph passes over the ``Site`` objects, so that every
+    graph source (``.gvt``, ``.xg``, ``.vg``, ``.gfa``, graphs built in
+    memory) flattens alike."""
     flat = getattr(graph, "_native_flat_cache", None)
     if flat is not None:
         return flat
     with span("graph_flatten_s"):
-        seq = _CODE_LUT[np.frombuffer(graph.seq.encode("ascii"), np.uint8)]
-        site_start, site_end, site_aoff, site_nall = [], [], [], []
-        allele_off, allele_len = [], []
-        blob_parts = []
-        blob_pos = 0
-        for s in graph.sites:
-            site_start.append(s.ref_start)
-            site_end.append(s.ref_end)
-            site_aoff.append(len(allele_off))
-            site_nall.append(len(s.alleles))
-            for a in s.alleles:
-                codes = _CODE_LUT[np.frombuffer(a.encode("ascii"), np.uint8)]
-                allele_off.append(blob_pos)
-                allele_len.append(len(codes))
-                blob_parts.append(codes)
-                blob_pos += len(codes)
+        site_start, site_end = graph.site_spans()
+        alleles = list(map(attrgetter("alleles"), graph.sites))
+        site_nall = np.fromiter(map(len, alleles), dtype=np.int32,
+                                count=len(alleles))
+        every = list(chain.from_iterable(alleles))
+        allele_len = np.fromiter(map(len, every), dtype=np.int64,
+                                 count=len(every))
         flat = dict(
-            seq=np.ascontiguousarray(seq),
-            site_start=np.array(site_start, dtype=np.int64),
-            site_end=np.array(site_end, dtype=np.int64),
-            site_aoff=np.array(site_aoff, dtype=np.int64),
-            site_nall=np.array(site_nall, dtype=np.int32),
-            allele_off=np.array(allele_off, dtype=np.int64),
-            allele_len=np.array(allele_len, dtype=np.int64),
-            blob=(
-                np.concatenate(blob_parts)
-                if blob_parts
-                else np.zeros(0, dtype=np.uint8)
-            ),
+            seq=_codes(graph.seq),
+            site_start=site_start,
+            site_end=site_end,
+            site_aoff=_exclusive_cumsum(site_nall),
+            site_nall=site_nall,
+            allele_off=_exclusive_cumsum(allele_len),
+            allele_len=allele_len,
+            blob=_codes("".join(every)),
         )
+    count("graph_flatten.graphs")
     graph._native_flat_cache = flat
     return flat
 

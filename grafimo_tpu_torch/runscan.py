@@ -39,7 +39,7 @@ from grafimo_tpu_torch.graph.runs import (
     Run,
     _anchor_bounds,
     _anchor_window_fallback,
-    _del_prefix,
+    _cluster_del_prefix,
     build_single_run,
     dense_cluster_runs,
     cluster_sites,
@@ -48,12 +48,7 @@ from grafimo_tpu_torch.graph.runs import (
     region_runs,
 )
 from grafimo_tpu_torch import kernels, spans
-from grafimo_tpu_torch.assemble import (
-    backbone_hits,
-    prepare_run,
-    qvalue_table,
-)
-from grafimo_tpu_torch.flatgraph import flat_arrays
+from grafimo_tpu_torch.assemble import backbone_hits, qvalue_table
 from grafimo_tpu_torch.graph.sitegraph import SiteGraph
 from grafimo_tpu_torch.models.motif import Motif
 from grafimo_tpu_torch.pvalues import PvalueLookup
@@ -367,12 +362,9 @@ class RegionRuns:
     _run_cache: Dict[Tuple[int, int], Run] = field(default_factory=dict)
 
     def get_run(self, ref: Tuple[int, int]) -> Run:
-        """Materialise run metadata lazily (hits only); the caches that
-        ``build_single_run`` reads are filled from arrays first
-        (:func:`assemble.prepare_run`)."""
+        """Materialise run metadata lazily (hits only)."""
         run = self._run_cache.get(ref)
         if run is None:
-            prepare_run(self.graph, self.start, self.stop, self.width, ref)
             run = build_single_run(
                 self.graph, self.start, self.stop, self.width, ref
             )
@@ -552,9 +544,6 @@ def batch_runs(
         ]
         for group in groups.values():
             try:
-                # the batcher's flat graph arrays, vectorised, into the
-                # cache that the pinned native._flatten_graph reads first
-                flat_arrays(group[0].graph)
                 per_bucket_native, overflow_pairs, dense_fallbacks = fn(
                     group[0].graph,
                     [(rr.start, rr.stop) for rr in group],
@@ -578,16 +567,12 @@ def batch_runs(
                 # original's key and run cache so hit reconstruction
                 # resolves (-2, i) refs through the same region.
                 n_fb: Dict[int, int] = {}
-                clusters_of: Dict[int, list] = {}
                 for ri, ci in overflow_pairs:
                     rr = group[ri]
-                    if ri not in clusters_of:
-                        clusters_of[ri] = cluster_sites(
-                            rr.graph, rr.start, rr.stop, k
-                        )
+                    cl = cluster_sites(rr.graph, rr.start, rr.stop, k)[ci]
                     fb_payloads = []
                     for run in dense_cluster_runs(
-                        rr.graph, clusters_of[ri][ci], rr.start, rr.stop, k
+                        rr.graph, cl, rr.start, rr.stop, k
                     ):
                         run.ref = (-2, n_fb.setdefault(ri, 0))
                         n_fb[ri] += 1
@@ -601,17 +586,11 @@ def batch_runs(
                 # cap: exact per-window rows for those anchors only
                 # (runs._anchor_window_fallback — mirrors the python
                 # dense generator's per-anchor escape hatch)
-                delpref_of: Dict[Tuple[int, int], list] = {}
                 for ri, ci, ai in dense_fallbacks:
                     rr = group[ri]
-                    if ri not in clusters_of:
-                        clusters_of[ri] = cluster_sites(
-                            rr.graph, rr.start, rr.stop, k
-                        )
-                    cl = clusters_of[ri][ci]
-                    dp = delpref_of.get((ri, ci))
-                    if dp is None:
-                        dp = delpref_of[(ri, ci)] = _del_prefix(cl)
+                    cl = cluster_sites(rr.graph, rr.start, rr.stop, k)[ci]
+                    dp = _cluster_del_prefix(rr.graph, rr.start, rr.stop,
+                                             k, ci)
                     _l, j_reach = _anchor_bounds(cl, dp, ai, k)
                     fb_payloads = []
                     for run in _anchor_window_fallback(

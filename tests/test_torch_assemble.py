@@ -1,9 +1,12 @@
-"""The run engine's hit assembly (``grafimo_tpu_torch/assemble.py``) on
-the CPU: each array route against the pinned function it stands in for
-(``graph/runs.py`` and ``ops/qvalue.py``, the reference's copies),
-array for array and bitwise, then ``compute_results_runs`` end to end
-against the JAX package's, frames ``check_exact``.  Tolerance 0
-throughout: integers, bytes, ``Site`` identity and float64 bits."""
+"""The run engine's hit assembly on the CPU: the backbone hits and
+q-value tables of ``grafimo_tpu_torch/assemble.py`` against the run and
+the loops they stand in for (``graph/runs.py``, ``ops/qvalue.py``); the
+port's array builds in ``graph/runs.py`` (clusters, deletable spans, the
+reference node array, a cold ``build_single_run``) against the JAX
+package's loops, each side on a graph its own package's loaders built;
+then ``compute_results_runs`` end to end against the JAX package's,
+frames ``check_exact``.  Tolerance 0 throughout: integers, bytes,
+``Site`` identity and float64 bits."""
 
 import numpy as np
 import pandas as pd
@@ -11,6 +14,8 @@ import pytest
 import torch
 
 import grafimo_tpu.runscan as ref_rs
+from grafimo_tpu.graph import runs as ref_runs
+import grafimo_tpu.native as ref_native
 import grafimo_tpu_torch.native as port_native
 import grafimo_tpu_torch.runscan as port_rs
 from grafimo_tpu.utils.constants import UNIF
@@ -152,38 +157,37 @@ GRAPH_KINDS = {
 @pytest.mark.parametrize("kind", list(GRAPH_KINDS) + ["no_sites", "toy"])
 def test_ref_node_array_and_deletables_match_pinned(kind, input_dir):
     """The array builds of the reference node array and the per-site
-    deletable span equal the pinned sweep and ``_site_deletable``."""
-    def make():
+    deletable span equal the reference's sweep and ``_site_deletable``."""
+    def make(h):
         if kind == "toy":
-            return _toy(input_dir)
+            return _toy(input_dir, h)
         if kind == "no_sites":
-            return PORT.build_graph("c", "ACGTN" * 50, [])
-        return _graph(31, length=2400, **GRAPH_KINDS[kind])
+            return h.build_graph("c", "ACGTN" * 50, [])
+        return _graph(31, length=2400, h=h, **GRAPH_KINDS[kind])
 
-    got, want = make(), make()
-    arr = assemble.ref_node_array(got)
-    assert got._ref_node_arr is arr
-    pinned = port_runs._ref_node_array(want)
-    assert arr.dtype == pinned.dtype
-    np.testing.assert_array_equal(arr, pinned)
+    got, want = make(PORT), make(REF)
+    arr = port_runs._ref_node_array(got)
+    assert port_runs._ref_node_array(got) is arr
+    swept = ref_runs._ref_node_array(want)
+    assert arr.dtype == swept.dtype
+    np.testing.assert_array_equal(arr, swept)
+    dele = port_runs.site_deletables(got)
+    assert dele.dtype == np.int64
     np.testing.assert_array_equal(
-        assemble.site_deletables(got),
-        np.array([port_runs._site_deletable(x) for x in got.sites],
-                 dtype=np.int64).reshape(-1))
+        dele, [ref_runs._site_deletable(x) for x in want.sites])
 
 
-def _toy(input_dir):
-    seqs = PORT.read_fasta(str(input_dir / "test.fa"))
-    records = list(PORT.iter_vcf_records(str(input_dir / "test.vcf.gz"),
-                                         "x"))
-    return PORT.build_graph("x", seqs["x"], records)
+def _toy(input_dir, h=PORT):
+    seqs = h.read_fasta(str(input_dir / "test.fa"))
+    records = list(h.iter_vcf_records(str(input_dir / "test.vcf.gz"), "x"))
+    return h.build_graph("x", seqs["x"], records)
 
 
 @pytest.mark.parametrize("tamper", ["overlap", "no_ref_node"])
 def test_ref_node_array_on_overlapping_or_nodeless_pieces(tamper):
-    """Overlapping pieces fall back to the pinned sweep, whose later
-    writes win; a site whose ref allele has no node writes nothing."""
-    got, want = _graph(32), _graph(32)
+    """Overlapping pieces take the sweep, whose later writes win; a site
+    whose ref allele has no node writes nothing."""
+    got, want = _graph(32), _graph(32, h=REF)
     for g in (got, want):
         if tamper == "overlap":
             s, e, nid = g.segments[3]
@@ -191,81 +195,105 @@ def test_ref_node_array_on_overlapping_or_nodeless_pieces(tamper):
         else:
             site = next(x for x in g.sites[5:] if x.ref_end > x.ref_start)
             site.allele_nodes[0] = 0
-    np.testing.assert_array_equal(assemble.ref_node_array(got),
-                                  port_runs._ref_node_array(want))
+    np.testing.assert_array_equal(port_runs._ref_node_array(got),
+                                  ref_runs._ref_node_array(want))
+
+
+RUN_FIELDS = ("seq", "valid", "pos_begin", "pos_end", "node_of_base",
+              "site_info", "region_start", "region_end", "ref")
 
 
 @pytest.mark.parametrize("k", [5, 19])
-def test_prepare_run_fills_the_pinned_caches(k):
-    """For a dense-anchored row of each cluster, the deletable prefix
-    stored for ``build_single_run`` is the pinned ``_del_prefix``; the
-    clusters and the reference node array are the pinned ones."""
-    graph = _graph(33, length=2400, **GRAPH_KINDS["dense"])
-    start, stop = -10, graph.length - 200
-    clusters = assemble.region_clusters(graph, start, stop, k)
-    for ci, cluster in enumerate(clusters):
-        ref = (-3 - ci * port_runs.DENSE_CLUSTER_MULT, 0)
-        assemble.prepare_run(graph, start, stop, k, ref)
-        assert graph._dense_delpref_cache[(start, stop, k, ci)] == \
-            port_runs._del_prefix(cluster)
-    assert graph._cluster_cache[(start, stop, k)] is clusters
-    assert len(clusters) > 3
-    other = _graph(33, length=2400, **GRAPH_KINDS["dense"])
-    np.testing.assert_array_equal(graph._ref_node_arr,
-                                  port_runs._ref_node_array(other))
+def test_build_single_run_cold_matches_reference(k):
+    """Every run the native batcher emits for a region of the dense
+    graph, rebuilt by ``build_single_run`` on a graph no other call has
+    touched (dense-anchored rows, ``ref[0] <= -3``, first), equals the
+    reference's rebuild, field for field."""
+    got_g = _graph(33, length=2400, **GRAPH_KINDS["dense"])
+    want_g = _graph(33, length=2400, h=REF, **GRAPH_KINDS["dense"])
+    start, stop = -10, got_g.length - 200
+    per_bucket, overflow, fallbacks = ref_native.batch_regions_native(
+        want_g, [(start, stop)], k, (64, 128, 256, 512), n_threads=1,
+        dense=True)
+    assert not overflow and not fallbacks
+    refs = set()
+    for entry in per_bucket.values():
+        for part in (entry, entry.get("patched", {}),
+                     entry.get("spliced", {})):
+            if "meta" in part:
+                refs.update(map(tuple, part["meta"][:, 1:3].tolist()))
+    refs = sorted(refs)
+    assert refs[0][0] <= -3 and (-1, 0) in refs
+    assert len({r[0] for r in refs if r[0] <= -3}) > 1
+    assert (k == 5) == any(r[0] >= 0 for r in refs)
+    for ref in refs:
+        got = port_runs.build_single_run(got_g, start, stop, k, ref)
+        want = ref_runs.build_single_run(want_g, start, stop, k, ref)
+        assert (got is None) == (want is None), ref
+        if got is None:
+            continue
+        for name in RUN_FIELDS:
+            a, b = getattr(got, name), getattr(want, name)
+            if isinstance(b, np.ndarray):
+                assert a.dtype == b.dtype, (ref, name)
+                np.testing.assert_array_equal(a, b, err_msg=f"{ref} {name}")
+            else:
+                assert a == b, (ref, name)
 
 
 # -- clusters -------------------------------------------------------------
 
 
-def _ids(clusters):
-    return [[id(s) for s in c] for c in clusters]
+def _positions(clusters):
+    return [[(s.site_id, s.ref_start, s.ref_end) for s in c]
+            for c in clusters]
 
 
 @pytest.mark.parametrize("k", [5, 11, 19, 30])
 @pytest.mark.parametrize("kind", ["snp_only", "indels", "long_deletions",
                                   "insertions", "dense"])
 def test_region_clusters_match_cluster_sites(kind, k):
-    """The same ``Site`` objects in the same groups as the pinned
-    ``cluster_sites``, for the whole chromosome and random sub-regions,
-    and stored under the pinned memo's key."""
+    """``cluster_sites`` groups the same sites as the reference's
+    chaining loop, for the whole chromosome and random sub-regions: the
+    graph's own ``Site`` objects, memoised per region and width."""
     kw = GRAPH_KINDS[kind]
     seed = {"snp_only": 11, "indels": 12, "long_deletions": 13,
             "insertions": 14, "dense": 15}[kind]
     graph = _graph(seed, length=2400, **kw)
+    ref_graph = _graph(seed, length=2400, h=REF, **kw)
     if kind in ("snp_only", "insertions"):
-        assert not assemble.site_deletables(graph).any()
+        assert not port_runs.site_deletables(graph).any()
         assert (kind == "insertions") == any(
             s.ref_end == s.ref_start for s in graph.sites)
     else:
-        assert assemble.site_deletables(graph).any()
+        assert port_runs.site_deletables(graph).any()
     rng = np.random.default_rng(seed * 100 + k)
     regions = [(0, graph.length), (-30, graph.length + 30)] + [
         tuple(sorted(int(x) for x in rng.integers(-20, graph.length + 20, 2)))
         for _ in range(12)
     ]
+    ids = {id(s) for s in graph.sites}
     n_multi = 0
     for start, stop in regions:
-        want = port_runs.cluster_sites(graph, start, stop, k)
-        graph._cluster_cache.clear()
-        got = assemble.region_clusters(graph, start, stop, k)
-        assert _ids(got) == _ids(want)
-        assert graph._cluster_cache[(start, stop, k)] is got
+        got = port_runs.cluster_sites(graph, start, stop, k)
+        want = ref_runs.cluster_sites(ref_graph, start, stop, k)
+        assert _positions(got) == _positions(want)
+        assert all(id(s) in ids for c in got for s in c)
         assert port_runs.cluster_sites(graph, start, stop, k) is got
         n_multi += sum(len(c) > 1 for c in got)
     assert n_multi
 
 
-def _breaks_by_loop(starts, ends, dele, k):
-    """``cluster_sites``'s chaining loop on plain arrays."""
-    out, d = [], 0
-    for i in range(len(starts)):
-        if out and starts[i] - ends[i - 1] < k + d + 1:
-            d += dele[i]
-        else:
-            out.append(i)
-            d = dele[i]
-    return out
+class _Sites:
+    """The two things ``cluster_sites`` reads of a graph: its sites and
+    their spans."""
+
+    def __init__(self, sites):
+        self.sites = sites
+
+    def site_spans(self):
+        return (np.array([s.ref_start for s in self.sites], np.int64),
+                np.array([s.ref_end for s in self.sites], np.int64))
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -273,7 +301,9 @@ def test_cluster_breaks_match_chaining_loop(seed):
     """Gaps around ``k + 1`` and deletable sums that make a candidate
     break fail, then pass again after a reset, and a long run past the
     early stop; nothing deletable (every candidate breaks) to mostly
-    deletable."""
+    deletable: ``cluster_breaks`` starts a cluster where the reference's
+    ``cluster_sites`` does over the same sites."""
+    Site = ref_runs.Site
     rng = np.random.default_rng(seed)
     for _ in range(40):
         k = int(rng.integers(1, 40))
@@ -284,8 +314,13 @@ def test_cluster_breaks_match_chaining_loop(seed):
         span = rng.integers(0, 4, n) + dele
         starts = np.cumsum(gaps) + np.concatenate([[0], np.cumsum(span)[:-1]])
         ends = starts + span
-        assert assemble.cluster_breaks(starts, ends, dele, k) == \
-            _breaks_by_loop(starts, ends, dele, k)
+        sites = [Site(i, int(a), int(b), ["A" * (b - a), "A" * (b - a - d)],
+                      [0, 0])
+                 for i, (a, b, d) in enumerate(zip(starts, ends, dele))]
+        want = ref_runs.cluster_sites(_Sites(sites), -1, 1 << 40, k)
+        firsts = np.cumsum([0] + [len(c) for c in want[:-1]]).tolist()
+        assert port_runs.cluster_breaks(starts, ends, dele, k) == \
+            (firsts if n else [])
 
 
 # -- q-values -------------------------------------------------------------

@@ -5,16 +5,22 @@ reference is pinned to its original.
 
 A copy may differ from its original only by the package name in its
 import lines (``from grafimo_tpu.x`` -> ``from grafimo_tpu_torch.x``)
-and, in the three copies that open the port's phase spans
+and, in the two copies that open the port's phase spans
 (``grafimo_tpu_torch/spans.py``), by those spans: there the syntax trees
 are compared with each ``with span(...)`` block taken as its body and
 the import of ``span`` dropped.
+
+Where the port owns a faster implementation of a copied function, the
+port owns that module: the function is rewritten in place under its own
+name, its tests hold it to the reference's by behaviour, and every other
+top-level function, class and constant of the module stays pinned to the
+reference's one by one (``PARTIAL``), spans stripped as above.
 Two places that look as if they needed more need nothing: the native
-loader's ``RunPayload`` import (``native/__init__.py:208``) becomes the
+loader's ``RunPayload`` import (``build_region_runs_native``) becomes the
 port's ``grafimo_tpu_torch.runscan`` by that rename, and its build
 directory is ``_build/`` beside the copy's own sources, so the port's
 library builds into ``grafimo_tpu_torch/native/_build/``.  A fix to a
-copied module lands in both copies, or the pin fails.
+copied module or function lands in both copies, or the pin fails.
 """
 
 import ast
@@ -52,15 +58,23 @@ COPIES = [
     "models/__init__.py", "models/background.py", "models/motif.py",
     "models/parse.py", "models/process.py", "models/pvalue.py",
     "report/__init__.py", "report/results.py", "report/writer.py",
-    "graph/enumerate.py", "graph/haplo.py", "graph/runs.py",
+    "graph/enumerate.py", "graph/haplo.py",
     "graph/sitegraph.py", "graph/xg.py", "graph/gfa.py",
     "graph/vgproto.py", "graph/gbwt.py",
-    "native/__init__.py", "native/graphite.cpp", "native/vcfio.cpp",
+    "native/graphite.cpp", "native/vcfio.cpp",
 ]
 
 # copies that open spans
-INSTRUMENTED = ("graph/sitegraph.py", "native/__init__.py",
-                "report/writer.py")
+INSTRUMENTED = ("graph/sitegraph.py", "report/writer.py")
+
+# port-owned modules that began as copies, with the functions the port
+# rewrote: the per-graph arrays of the run decomposition and the C++
+# engine's flat graph view, each built in whole-graph passes
+PARTIAL = {
+    "graph/runs.py": ("cluster_sites", "_ref_node_array",
+                      "build_single_run"),
+    "native/__init__.py": ("_flatten_graph",),
+}
 
 _IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)grafimo_tpu(?=[.\s])",
                           re.M)
@@ -163,6 +177,37 @@ def test_copy_pinned_to_reference(rel):
     if rel in INSTRUMENTED:
         got, want = _unspanned(got), _unspanned(want)
     assert got == want, f"{rel} drifted from grafimo_tpu/{rel}"
+
+
+def _definitions(text: str) -> dict:
+    """``text``'s top-level functions, classes and constants (assignments
+    to one name), each as the dump of its spanless syntax tree."""
+    out = {}
+    for node in _Unspanned().visit(ast.parse(text)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node)
+        elif (isinstance(node, ast.Assign) and len(node.targets) == 1
+              and isinstance(node.targets[0], ast.Name)):
+            out[node.targets[0].id] = ast.dump(node)
+    return out
+
+
+def _reference_definitions(rel: str) -> dict:
+    return _definitions(_renamed((REPO / "grafimo_tpu" / rel).read_text()))
+
+
+@pytest.mark.parametrize("rel,name", [
+    (rel, name) for rel, rewritten in PARTIAL.items()
+    for name in sorted(set(_reference_definitions(rel)) - set(rewritten))
+])
+def test_kept_definition_pinned_to_reference(rel, name):
+    """A function, class or constant of a port-owned module that the port
+    did not rewrite is the reference's, import lines renamed and spans
+    stripped."""
+    got = _definitions((PORT_DIR / rel).read_text())
+    assert name in got, f"{rel}: {name} is gone"
+    assert got[name] == _reference_definitions(rel)[name], \
+        f"{rel}: {name} drifted from grafimo_tpu/{rel}"
 
 
 def test_rewritten_loaders_match_reference(tmp_path):

@@ -39,13 +39,15 @@ flush blocks (``runscan.plan_slices``), its device->host reads
 ``ops/hist.COUNTS``, ``ops/compact.COUNTS``), its hits, and the split
 of its wall: graph load, host batching, scan, hit assembly, statistics,
 report writing.  Within hit assembly and statistics, each function a
-tree has: the pinned ``graph/runs.py`` builds (``backbone_run_s``,
-``cluster_sites_s``), which the route of ``grafimo_tpu_torch/assemble.py``
-reaches only for runs cached by the Python extraction or rebuilt after a
-checkpoint (its ``cluster_sites`` calls then read the memo), and that
-route's ``backbone_hits_s`` (the first reference node array build
-included), ``clusters_s`` (``region_clusters``) and ``ref_nodes_s``
-(``ref_node_array``); ``qvalue_s`` is the q-value tables on either route.  With ``--check-cpu`` each ``findmotif`` runs once more on
+tree has: ``backbone_run_s`` (``graph/runs._build_backbone_run``, reached
+only for runs cached by the Python extraction or rebuilt after a
+checkpoint), ``cluster_sites_s`` (``graph/runs.cluster_sites``),
+``backbone_hits_s`` (``assemble.backbone_hits``, the first reference
+node array build included), ``ref_nodes_s`` (the reference node array:
+``graph/runs._ref_node_array``, or ``assemble.ref_node_array`` in a tree
+that has it) and, in such a tree, ``clusters_s``
+(``assemble.region_clusters``, whose memo its ``cluster_sites`` calls
+then read); ``qvalue_s`` is the q-value tables on either route.  With ``--check-cpu`` each ``findmotif`` runs once more on
 ``--device cpu`` and its TSV and GFF3 must equal the card's byte for
 byte; the timed runs stay on the card.  The tool exits non-zero when a
 run fails or a check does not hold: reports that differ, a plain
@@ -122,10 +124,14 @@ for name, key in (('backbone_hits', 'backbone_hits_s'),
         timed(rs, name, key)
 try:
     import grafimo_tpu_torch.assemble as asm
+except ImportError:
+    asm = None
+if hasattr(asm, 'region_clusters'):
     timed(asm, 'region_clusters', 'clusters_s')
     timed(asm, 'ref_node_array', 'ref_nodes_s')
-except ImportError:
-    pass
+elif asm is not None:
+    timed(runs, '_ref_node_array', 'ref_nodes_s')
+    asm._ref_node_array = runs._ref_node_array
 timed(rs, '_build_reports', 'statistics_s')
 timed(wf, 'write_results', 'report_write_s')
 rc = main(sys.argv[1:])

@@ -23,12 +23,12 @@ Per width it prints the motifs and device columns, the slice blocks and
 rows per block, the host batching (``runscan.batch_runs``), scan
 (``scan_batches``), report (hit assembly, ``_assemble_columns``, plus
 per-motif statistics, ``_build_reports``) and whole-pass seconds, the
-report's split by function where the tree has it (the pinned
-``graph/runs.py`` builds ``backbone_run_s`` and ``cluster_sites_s``,
-which the route of ``grafimo_tpu_torch/assemble.py`` reaches only for
-runs cached by the Python extraction; that route's ``backbone_hits_s``,
-``clusters_s`` and ``ref_nodes_s``; ``qvalue_s``, the q-value tables on
-either route), the kernel launches per
+report's split by function where the tree has it (``graph/runs.py``'s
+``backbone_run_s``, reached only for runs cached by the Python
+extraction, and ``cluster_sites_s``; ``assemble.backbone_hits_s``;
+``ref_nodes_s``, the reference node array, in ``graph/runs.py`` or, in
+a tree that has them, ``assemble.py``, with ``clusters_s`` there;
+``qvalue_s``, the q-value tables on either route), the kernel launches per
 route (``ops/score_runs.COUNTS``, ``ops/hist.COUNTS``,
 ``ops/compact.COUNTS``), the device's busy time and idle share inside
 the scan span, the hits, and window-strand-motif scorings (the
@@ -151,10 +151,13 @@ def ladder(tree: str, graph_path: str, meme: str, work: str,
     try:
         import grafimo_tpu_torch.assemble as asm
     except ImportError:  # a tree from before the module
-        pass
-    else:
+        asm = None
+    if hasattr(asm, "region_clusters"):  # a tree with the arrays there
         asm.region_clusters = timed(asm.region_clusters, "clusters_s")
         asm.ref_node_array = timed(asm.ref_node_array, "ref_nodes_s")
+    elif asm is not None:
+        runs._ref_node_array = asm._ref_node_array = timed(
+            runs._ref_node_array, "ref_nodes_s")
     widths = []
     t_all = time.perf_counter()
     for k in sorted(by_width):
