@@ -30,8 +30,9 @@ flags are reconstructed per *hit* from run metadata.
 
 The per-graph arrays behind the clusters and the runs (site deletable
 spans, the reference node of every base, a dense cluster's deletable
-prefix) are built here from whole-graph passes and memoised on the graph
-by the function that reads them.
+prefix) are built here, from the graph's member tables where a ``.gvt``
+loaded them, else from whole-graph passes, and memoised on the graph by
+the function that reads them.
 """
 
 from dataclasses import dataclass
@@ -93,19 +94,25 @@ def _site_deletable(site: Site) -> int:
 
 def site_deletables(graph: SiteGraph) -> np.ndarray:
     """:func:`_site_deletable` of every site, as an int64 array cached on
-    the graph."""
+    the graph; the allele lengths come from the graph's allele table
+    where it has one."""
     arr = getattr(graph, "_site_deletable_arr", None)
     if arr is None:
         starts, ends = graph.site_spans()
-        alleles = list(map(attrgetter("alleles"), graph.sites))
-        n_alleles = np.fromiter(map(len, alleles), dtype=np.int64,
-                                count=len(alleles))
-        lengths = np.fromiter(
-            map(len, chain.from_iterable(alleles)), dtype=np.int64,
-            count=int(n_alleles.sum()),
-        )
-        first = np.concatenate([[0], np.cumsum(n_alleles)[:-1]])
-        shortest = (np.minimum.reduceat(lengths, first) if len(alleles)
+        table = graph.allele_table()
+        if table is not None:
+            n_alleles, bounds, _blob = table
+            lengths = np.diff(bounds)
+        else:
+            alleles = list(map(attrgetter("alleles"), graph.sites))
+            n_alleles = np.fromiter(map(len, alleles), dtype=np.int64,
+                                    count=len(alleles))
+            lengths = np.fromiter(
+                map(len, chain.from_iterable(alleles)), dtype=np.int64,
+                count=int(n_alleles.sum()),
+            )
+        first = np.cumsum(n_alleles) - n_alleles
+        shortest = (np.minimum.reduceat(lengths, first) if len(n_alleles)
                     else np.zeros(0, dtype=np.int64))
         arr = np.maximum(ends - starts - shortest, 0)
         graph._site_deletable_arr = arr
@@ -431,19 +438,27 @@ def _ref_node_array(graph: SiteGraph) -> np.ndarray:
     inside the chromosome, as a graph's segments and sites are;
     otherwise the sweep writes them in that order, later writes winning.
     A site whose ref allele has no node writes nothing, or, where the
-    pieces are disjoint, the zeros it would leave."""
+    pieces are disjoint, the zeros it would leave.  The segments and each
+    site's first allele node come from the graph's reference-path tables
+    where it has them."""
     arr = getattr(graph, "_ref_node_arr", None)
     if arr is not None:
         return arr
-    seg = np.fromiter(
-        chain.from_iterable(graph.segments), dtype=np.int64,
-        count=3 * len(graph.segments),
-    ).reshape(-1, 3)
     s_start, s_end = graph.site_spans()
-    s_node = np.fromiter(
-        map(itemgetter(0), map(attrgetter("allele_nodes"), graph.sites)),
-        dtype=np.int64, count=len(graph.sites),
-    )
+    tables = graph.ref_path_tables()
+    if tables is not None:
+        seg, allele_nodes = tables
+        n_alleles = graph.allele_table()[0]
+        s_node = allele_nodes[np.cumsum(n_alleles) - n_alleles]
+    else:
+        seg = np.fromiter(
+            chain.from_iterable(graph.segments), dtype=np.int64,
+            count=3 * len(graph.segments),
+        ).reshape(-1, 3)
+        s_node = np.fromiter(
+            map(itemgetter(0), map(attrgetter("allele_nodes"), graph.sites)),
+            dtype=np.int64, count=len(graph.sites),
+        )
     keep = s_end > s_start
     lo = np.concatenate([seg[:, 0], s_start[keep]])
     hi = np.concatenate([seg[:, 1], s_end[keep]])
@@ -455,11 +470,12 @@ def _ref_node_array(graph: SiteGraph) -> np.ndarray:
     L = graph.length
     if len(lo) and (lo[0] < 0 or hi.max() > L or (lo[1:] < hi[:-1]).any()):
         arr = np.zeros(L, dtype=np.int32)
-        for s, e, nid in graph.segments:
+        for s, e, nid in seg.tolist():
             arr[s:e] = nid
-        for site in graph.sites:
-            if site.ref_end > site.ref_start and site.allele_nodes[0]:
-                arr[site.ref_start : site.ref_end] = site.allele_nodes[0]
+        for s, e, nid in zip(s_start[keep].tolist(), s_end[keep].tolist(),
+                             s_node[keep].tolist()):
+            if nid:
+                arr[s:e] = nid
     else:
         # pieces alternate with the (possibly empty) gaps around them
         edges = np.empty(2 * len(lo) + 2, dtype=np.int64)

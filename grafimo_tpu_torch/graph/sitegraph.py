@@ -18,9 +18,20 @@ structure stores exactly that:
 
 Node IDs are 1-based and assigned in genomic order.  The graph serialises to
 a single ``.gvt`` npz file (arrays only, no pickle).
+
+A format-2 file loads as its member arrays: ``sites``, ``segments``,
+``elements`` and the haplotype index's per-site rows are sequences over
+those arrays that build each item on first read and keep it, and the
+whole-graph readers take the arrays themselves (:meth:`SiteGraph.site_spans`,
+:meth:`SiteGraph.allele_table`, :meth:`SiteGraph.ref_path_tables`).  A
+hit-bearing region reads a few percent of a chromosome's sites.  Every
+other graph source (format-1 files, ``.xg``, ``.vg``, ``.gfa``, graphs
+built in memory) holds plain lists.
 """
 
 import json
+import operator
+from collections import abc
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -28,7 +39,7 @@ import numpy as np
 
 from grafimo_tpu_torch.graph.haplo import HaploIndex
 from grafimo_tpu_torch.io.vcf import VcfRecord
-from grafimo_tpu_torch.spans import span
+from grafimo_tpu_torch.spans import count, span
 
 
 @dataclass
@@ -38,6 +49,137 @@ class Site:
     ref_end: int  # 0-based exclusive; == ref_start for pure insertions
     alleles: List[str]  # index 0 = trimmed ref allele ("" for insertion)
     allele_nodes: List[int]  # node id per allele; 0 = no node (empty allele)
+
+
+class _OnRead(abc.Sequence):
+    """A list's reads over ``n`` items that are built by ``_make(i)`` on
+    first read and kept, so an index always returns the same object:
+    ``len``, indices (negative ones too), slices (as lists), iteration,
+    and equality with a list or another such sequence.  Once every item
+    is built, slices and iteration are the kept list's own."""
+
+    def __init__(self, n: int):
+        self._items = [None] * n
+        self._missing = n
+
+    def _make(self, i: int):
+        raise NotImplementedError
+
+    def _get(self, i: int):
+        item = self._items[i]
+        if item is None:
+            item = self._items[i] = self._make(i)
+            self._missing -= 1
+        return item
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def __getitem__(self, idx):
+        n = len(self._items)
+        if isinstance(idx, slice):
+            if self._missing:
+                for i in range(*idx.indices(n)):
+                    self._get(i)
+            return self._items[idx]
+        i = operator.index(idx)
+        if i < 0:
+            i += n
+        if not 0 <= i < n:
+            raise IndexError("list index out of range")
+        return self._get(i)
+
+    def __iter__(self):
+        if self._missing:
+            return map(self._get, range(len(self._items)))
+        return iter(self._items)
+
+    def __eq__(self, other):
+        if not isinstance(other, (list, _OnRead)):
+            return NotImplemented
+        return len(self) == len(other) and all(
+            a == b for a, b in zip(self, other)
+        )
+
+
+class _MemberSites(_OnRead):
+    """``Site(i, ...)`` from the members ``site_start``, ``site_end``,
+    ``site_n_alleles``, ``allele_bounds``, ``allele_blob`` and
+    ``allele_nodes``, as the eager load made it; each build counts as
+    ``graph_objects.sites_built``."""
+
+    def __init__(self, starts, ends, n_alleles, bounds, blob, nodes):
+        super().__init__(len(n_alleles))
+        self.starts, self.ends = starts, ends
+        self.n_alleles, self.bounds, self.blob = n_alleles, bounds, blob
+        self.nodes = nodes
+        self._first = np.zeros(len(n_alleles) + 1, dtype=np.int64)
+        np.cumsum(n_alleles, out=self._first[1:])
+        self._text = bytes(blob).decode("ascii")
+
+    def _make(self, i: int) -> Site:
+        a, b = self._first[i : i + 2].tolist()
+        cut = self.bounds[a : b + 1].tolist()
+        text = self._text
+        count("graph_objects.sites_built")
+        return Site(
+            i,
+            int(self.starts[i]),
+            int(self.ends[i]),
+            [text[cut[j] : cut[j + 1]] for j in range(b - a)],
+            self.nodes[a:b].tolist(),
+        )
+
+
+class _MemberSegments(_OnRead):
+    """``(ref_start, ref_end, node_id)`` tuples from ``segments_tab``."""
+
+    def __init__(self, tab):
+        super().__init__(len(tab))
+        self.tab = tab
+
+    def _make(self, i: int) -> Tuple[int, int, int]:
+        return tuple(self.tab[i].tolist())
+
+
+class _MemberElements(_OnRead):
+    """``("seg", node_id)`` / ``("site", site_id)`` from ``el_kind`` and
+    ``el_id``."""
+
+    def __init__(self, kinds, ids):
+        super().__init__(len(kinds))
+        self.kinds, self.ids = kinds, ids
+
+    def _make(self, i: int) -> Tuple[str, int]:
+        return ("seg" if self.kinds[i] == 0 else "site", int(self.ids[i]))
+
+
+_HAPLO_MEMBERS = ("hap_n", "hap_nsites", "hap_map_site", "hap_map_allele",
+                  "hap_map_row", "hap_alt_bits")
+
+
+class _MemberRows(_OnRead):
+    """``HaploIndex.site_allele_rows`` from ``hap_map_site`` (sorted,
+    inside ``[0, n_sites)``), ``hap_map_allele`` and ``hap_map_row``: a
+    site's ``{allele: row}`` in stored order, as ``from_arrays`` fills
+    it."""
+
+    def __init__(self, n_sites, sites, alleles, rows):
+        super().__init__(n_sites)
+        self.sites, self.alleles, self.rows = sites, alleles, rows
+
+    @staticmethod
+    def fits(n_sites, sites) -> bool:
+        return len(sites) == 0 or bool(
+            sites[0] >= 0 and sites[-1] < n_sites
+            and (sites[1:] >= sites[:-1]).all()
+        )
+
+    def _make(self, i: int) -> dict:
+        lo, hi = np.searchsorted(self.sites, [i, i + 1]).tolist()
+        return dict(
+            zip(self.alleles[lo:hi].tolist(), self.rows[lo:hi].tolist())
+        )
 
 
 @dataclass
@@ -69,15 +211,46 @@ class SiteGraph:
 
     def site_spans(self):
         """Cached ``(starts, ends)`` int64 arrays over the (sorted,
-        non-overlapping) sites, for binary-search region queries."""
+        non-overlapping) sites, for binary-search region queries: the
+        stored ``site_start`` and ``site_end`` of a graph loaded from
+        its members."""
         spans = getattr(self, "_site_spans_cache", None)
         if spans is None:
-            spans = (
-                np.array([s.ref_start for s in self.sites], dtype=np.int64),
-                np.array([s.ref_end for s in self.sites], dtype=np.int64),
-            )
+            if isinstance(self.sites, _MemberSites):
+                spans = (
+                    np.asarray(self.sites.starts, dtype=np.int64),
+                    np.asarray(self.sites.ends, dtype=np.int64),
+                )
+            else:
+                spans = (
+                    np.array(
+                        [s.ref_start for s in self.sites], dtype=np.int64
+                    ),
+                    np.array([s.ref_end for s in self.sites], dtype=np.int64),
+                )
             self._site_spans_cache = spans
         return spans
+
+    def allele_table(self):
+        """``(site_n_alleles, allele_bounds, allele_blob)`` of a graph
+        whose sites are its file's members: each site's allele count,
+        the ``len + 1`` offsets of every allele in order into the ASCII
+        bytes of all of them; None for any other graph."""
+        sites = self.sites
+        if isinstance(sites, _MemberSites):
+            return sites.n_alleles, sites.bounds, sites.blob
+        return None
+
+    def ref_path_tables(self):
+        """``(segments_tab, allele_nodes)`` of a graph whose segments and
+        sites are its file's members: the ``(n, 3)`` int64 segment rows
+        and every allele's node in order (a site's first allele is its
+        reference allele); None for any other graph."""
+        if isinstance(self.sites, _MemberSites) and isinstance(
+            self.segments, _MemberSegments
+        ):
+            return self.segments.tab, self.sites.nodes
+        return None
 
     def _ref_cover(self):
         cover = getattr(self, "_ref_cover_cache", None)
@@ -183,40 +356,21 @@ class SiteGraph:
 
             data = _Fast()
             meta = json.loads(bytes(data["meta"]).decode("utf-8"))
-            if meta.get("format", 1) >= 2:
-                blob = bytes(data["allele_blob"]).decode("ascii")
-                bounds = data["allele_bounds"].tolist()
-                n_all = data["site_n_alleles"]
-                nodes_list = data["allele_nodes"].tolist()
-                s_start = data["site_start"].tolist()
-                s_end = data["site_end"].tolist()
-                a0 = np.zeros(len(n_all) + 1, dtype=np.int64)
-                np.cumsum(n_all, out=a0[1:])
-                a0 = a0.tolist()
-                alleles_all = [
-                    blob[bounds[j] : bounds[j + 1]]
-                    for j in range(len(bounds) - 1)
-                ]
-                sites = [
-                    Site(
-                        i,
-                        s_start[i],
-                        s_end[i],
-                        alleles_all[a0[i] : a0[i + 1]],
-                        nodes_list[a0[i] : a0[i + 1]],
-                    )
-                    for i in range(len(n_all))
-                ]
-                segments = [
-                    (int(a), int(b), int(c))
-                    for a, b, c in data["segments_tab"]
-                ]
-                kinds = data["el_kind"]
-                eids = data["el_id"]
-                elements = [
-                    ("seg" if kinds[i] == 0 else "site", int(eids[i]))
-                    for i in range(len(kinds))
-                ]
+            members = meta.get("format", 1) >= 2
+            if members:
+                # the member arrays, each item built where it is read
+                sites = _MemberSites(
+                    data["site_start"],
+                    data["site_end"],
+                    data["site_n_alleles"],
+                    data["allele_bounds"],
+                    data["allele_blob"],
+                    data["allele_nodes"],
+                )
+                segments = _MemberSegments(data["segments_tab"])
+                elements = _MemberElements(data["el_kind"], data["el_id"])
+                count("graph_objects.member_graphs")
+                count("graph_objects.sites_built", 0)
             else:  # v1: JSON meta (older .gvt files)
                 sites = [
                     Site(i, d["s"], d["e"], d["a"], d["n"])
@@ -224,9 +378,19 @@ class SiteGraph:
                 ]
                 segments = [tuple(s) for s in meta["segments"]]
                 elements = [tuple(e) for e in meta["elements"]]
-            haplo = (
-                HaploIndex.from_arrays(data) if "hap_n" in data else None
-            )
+            haplo = None
+            if "hap_n" in data:
+                hap = {name: data[name] for name in _HAPLO_MEMBERS}
+                n_sites = int(hap["hap_nsites"][0])
+                site_of = hap["hap_map_site"]
+                if members and _MemberRows.fits(n_sites, site_of):
+                    rows = _MemberRows(n_sites, site_of,
+                                       hap["hap_map_allele"],
+                                       hap["hap_map_row"])
+                    haplo = HaploIndex(int(hap["hap_n"][0]), rows,
+                                       np.asarray(hap["hap_alt_bits"]))
+                else:
+                    haplo = HaploIndex.from_arrays(hap)
             return SiteGraph(
                 chrom=meta["chrom"],
                 seq=bytes(data["seq"]).decode("ascii"),

@@ -178,20 +178,29 @@ def _flatten_graph(graph):
     (the graph's ``site_spans``); ``site_aoff`` and ``site_nall``, each
     site's first allele and allele count; ``allele_off`` and
     ``allele_len`` into ``blob``, the codes of every allele in order.
-    Built in whole-graph passes over the ``Site`` objects, so that every
-    graph source (``.gvt``, ``.xg``, ``.vg``, ``.gfa``, graphs built in
-    memory) flattens alike."""
+    Taken from the graph's allele table where it has one (a ``.gvt``
+    loaded from its members), else built in whole-graph passes over the
+    ``Site`` objects (``.xg``, ``.vg``, ``.gfa``, format-1 files, graphs
+    built in memory); both give the same arrays."""
     flat = getattr(graph, "_native_flat_cache", None)
     if flat is not None:
         return flat
     with span("graph_flatten_s"):
         site_start, site_end = graph.site_spans()
-        alleles = list(map(attrgetter("alleles"), graph.sites))
-        site_nall = np.fromiter(map(len, alleles), dtype=np.int32,
-                                count=len(alleles))
-        every = list(chain.from_iterable(alleles))
-        allele_len = np.fromiter(map(len, every), dtype=np.int64,
-                                 count=len(every))
+        table = graph.allele_table()
+        if table is not None:
+            n_alleles, bounds, blob = table
+            site_nall = np.asarray(n_alleles, dtype=np.int32)
+            allele_len = np.diff(bounds)
+            blob = _CODE_LUT[blob]
+        else:
+            alleles = list(map(attrgetter("alleles"), graph.sites))
+            site_nall = np.fromiter(map(len, alleles), dtype=np.int32,
+                                    count=len(alleles))
+            every = list(chain.from_iterable(alleles))
+            allele_len = np.fromiter(map(len, every), dtype=np.int64,
+                                     count=len(every))
+            blob = _codes("".join(every))
         flat = dict(
             seq=_codes(graph.seq),
             site_start=site_start,
@@ -200,7 +209,7 @@ def _flatten_graph(graph):
             site_nall=site_nall,
             allele_off=_exclusive_cumsum(allele_len),
             allele_len=allele_len,
-            blob=_codes("".join(every)),
+            blob=blob,
         )
     count("graph_flatten.graphs")
     graph._native_flat_cache = flat

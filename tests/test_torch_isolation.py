@@ -5,7 +5,7 @@ reference is pinned to its original.
 
 A copy may differ from its original only by the package name in its
 import lines (``from grafimo_tpu.x`` -> ``from grafimo_tpu_torch.x``)
-and, in the two copies that open the port's phase spans
+and, in the copy that opens the port's phase spans
 (``grafimo_tpu_torch/spans.py``), by those spans: there the syntax trees
 are compared with each ``with span(...)`` block taken as its body and
 the import of ``span`` dropped.
@@ -14,7 +14,10 @@ Where the port owns a faster implementation of a copied function, the
 port owns that module: the function is rewritten in place under its own
 name, its tests hold it to the reference's by behaviour, and every other
 top-level function, class and constant of the module stays pinned to the
-reference's one by one (``PARTIAL``), spans stripped as above.
+reference's one by one (``PARTIAL``), spans stripped as above.  Where
+the port rewrote methods of a class (``REWRITTEN_METHODS``), each other
+method and field of that class, its decorators and its bases stay the
+reference's one by one in the same way.
 Two places that look as if they needed more need nothing: the native
 loader's ``RunPayload`` import (``build_region_runs_native``) becomes the
 port's ``grafimo_tpu_torch.runscan`` by that rename, and its build
@@ -59,21 +62,29 @@ COPIES = [
     "models/parse.py", "models/process.py", "models/pvalue.py",
     "report/__init__.py", "report/results.py", "report/writer.py",
     "graph/enumerate.py", "graph/haplo.py",
-    "graph/sitegraph.py", "graph/xg.py", "graph/gfa.py",
+    "graph/xg.py", "graph/gfa.py",
     "graph/vgproto.py", "graph/gbwt.py",
     "native/graphite.cpp", "native/vcfio.cpp",
 ]
 
 # copies that open spans
-INSTRUMENTED = ("graph/sitegraph.py", "report/writer.py")
+INSTRUMENTED = ("report/writer.py",)
 
 # port-owned modules that began as copies, with the functions the port
 # rewrote: the per-graph arrays of the run decomposition and the C++
-# engine's flat graph view, each built in whole-graph passes
+# engine's flat graph view, each built in whole-graph passes or taken
+# from a loaded graph's member arrays, and the graph class whose load
+# keeps a ``.gvt`` file's members and builds objects where they are read
 PARTIAL = {
     "graph/runs.py": ("cluster_sites", "_ref_node_array",
                       "build_single_run"),
     "native/__init__.py": ("_flatten_graph",),
+    "graph/sitegraph.py": ("SiteGraph",),
+}
+
+# methods the port rewrote inside a rewritten class of ``PARTIAL``
+REWRITTEN_METHODS = {
+    ("graph/sitegraph.py", "SiteGraph"): ("load", "site_spans"),
 }
 
 _IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)grafimo_tpu(?=[.\s])",
@@ -208,6 +219,48 @@ def test_kept_definition_pinned_to_reference(rel, name):
     assert name in got, f"{rel}: {name} is gone"
     assert got[name] == _reference_definitions(rel)[name], \
         f"{rel}: {name} drifted from grafimo_tpu/{rel}"
+
+
+def _class_body(text: str, cls: str) -> dict:
+    """The class ``cls`` of ``text``, spans stripped: each method and
+    field (annotated or assigned) as the dump of its syntax tree, and its
+    decorators and bases under ``"(header)"``."""
+    for node in _Unspanned().visit(ast.parse(text)).body:
+        if isinstance(node, ast.ClassDef) and node.name == cls:
+            out = {"(header)": ast.dump(ast.ClassDef(
+                name=node.name, bases=node.bases, keywords=node.keywords,
+                body=[], decorator_list=node.decorator_list))}
+            for stmt in node.body:
+                if isinstance(stmt, ast.FunctionDef):
+                    out[stmt.name] = ast.dump(stmt)
+                elif (isinstance(stmt, ast.AnnAssign)
+                      and isinstance(stmt.target, ast.Name)):
+                    out[stmt.target.id] = ast.dump(stmt)
+                elif (isinstance(stmt, ast.Assign) and len(stmt.targets) == 1
+                      and isinstance(stmt.targets[0], ast.Name)):
+                    out[stmt.targets[0].id] = ast.dump(stmt)
+            return out
+    raise AssertionError(f"no class {cls}")
+
+
+def _reference_class_body(rel: str, cls: str) -> dict:
+    return _class_body(_renamed((REPO / "grafimo_tpu" / rel).read_text()),
+                       cls)
+
+
+@pytest.mark.parametrize("rel,cls,name", [
+    (rel, cls, name) for (rel, cls), rewritten in REWRITTEN_METHODS.items()
+    for name in sorted(set(_reference_class_body(rel, cls)) - set(rewritten))
+])
+def test_kept_method_pinned_to_reference(rel, cls, name):
+    """A method or field of a rewritten class that the port did not
+    rewrite, and the class's decorators and bases, are the reference's,
+    import lines renamed and spans stripped."""
+    assert cls in PARTIAL[rel]
+    got = _class_body((PORT_DIR / rel).read_text(), cls)
+    assert name in got, f"{rel}: {cls}.{name} is gone"
+    assert got[name] == _reference_class_body(rel, cls)[name], \
+        f"{rel}: {cls}.{name} drifted from grafimo_tpu/{rel}"
 
 
 def test_rewritten_loaders_match_reference(tmp_path):

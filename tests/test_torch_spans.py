@@ -38,7 +38,8 @@ REGISTERED = {"hist": hist.COUNTS, "compact": compact.COUNTS,
               "scan_packed": scan_packed.COUNTS,
               "score_runs": score_runs.COUNTS, "reads": runscan.READS}
 COUNTERS = ("h2d_bytes", "scan.width_passes", "report.motifs_written",
-            "report.motifs_empty", *(
+            "report.motifs_empty", "graph_objects.member_graphs",
+            "graph_objects.sites_built", *(
                 f"{p}.{k}" for p, d in REGISTERED.items() for k in d))
 
 
